@@ -1,0 +1,113 @@
+"""Import hygiene of the PyTorch port: it (and chip_smoke.py) imports
+neither jax nor anything of the JAX package, and its entry points default
+to CUDA and raise without a GPU instead of falling back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "gs_slam_analytica_jacobian_tpu_torch"
+JAX_PKG = "gs_slam_analytica_jacobian_tpu"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'jaxlib' or "
+        f"m == {JAX_PKG!r} or m.startswith({JAX_PKG + '.'!r}))\n"
+        "assert not bad, bad\n"
+        "print('ok', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.startswith("ok")
+
+
+def _imported_names(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_source_imports_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    for path in files:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", JAX_PKG), (path, name)
+
+
+def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
+    from gs_slam_analytica_jacobian_tpu_torch.device import resolve_device
+    from gs_slam_analytica_jacobian_tpu_torch.models import gaussian_map
+    from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera
+    from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled
+    from gs_slam_analytica_jacobian_tpu_torch.slam import render_api
+    from gs_slam_analytica_jacobian_tpu_torch.slam import tracking
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    n = 8
+    gm = gaussian_map.from_numpy(
+        xyz=np.ones((n, 3), np.float32), features_dc=np.zeros((n, 1, 3)),
+        features_rest=np.zeros((n, 0, 3)), scaling=np.zeros((n, 3)),
+        rotation=np.tile([1.0, 0, 0, 0], (n, 1)), opacity=np.zeros((n, 1)),
+        max_sh_degree=0, device="cpu")
+    cam = Camera.create(np.eye(3), np.zeros(3), 30.0, 30.0, 31.5, 15.5, 64,
+                        32, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_api.render(gm, cam)                     # device=None
+    with pytest.raises(RuntimeError, match="CUDA"):
+        render_api.make_render_plan(gm, cam)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Camera.create(np.eye(3), np.zeros(3), 30.0, 30.0, 31.5, 15.5, 64, 32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gaussian_map.GaussianMap.empty(4)
+    z = torch.zeros(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        renderer_tiled.render(gm.xyz, gm.get_cov6(), gm.get_opacity(),
+                              gm.get_features(), 0, cam.w2c(),
+                              cam.projection(), torch.zeros(6), 30.0, 30.0,
+                              64, 32, 1.0, 0.5, torch.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tracking.track_frame_pyr(
+            gm, cam, cam.R, cam.t, torch.zeros(3, 32, 64), z, z, z, 0.0,
+            0.0, 0.01, levels=(1,), level_iters=(1,), level_exact=(0,),
+            curv="flow")
+    # explicitly on the CPU it renders (plain kernel version)
+    out = render_api.render(gm, cam, device="cpu")
+    assert out.color.shape == (3, 32, 64)
+    # tensors on another device than the one asked for are refused
+    with pytest.raises(ValueError):
+        render_api.render(gm, cam, device="meta")

@@ -1,0 +1,243 @@
+"""The tracking slice: the port's forward-only pyramid IRLS tracker vs the
+JAX reference (Pallas kernel in interpret mode) on the
+tests/test_tracking.py small scene (96x64, 600 Gaussians).
+
+- pyramid helpers and the flow Jacobian: atol 1e-6;
+- one IRLS iteration's (H, g): rtol 1e-4;
+- track_frame_pyr (curv="flow", levels (2, 1), level_iters (4, 6),
+  level_exact (0, 0), final_level 1): final R and t within 1e-4,
+  iteration counts within 1 (the ||tau|| < 1e-4 convergence test is a
+  threshold), keyframing n_touched totals within 0.5% (the two final
+  poses differ slightly; exact n_touched equality is tested at a fixed
+  pose in test_torch_composite.py).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gs_slam_analytica_jacobian_tpu.models import gaussian_map as jgmap
+from gs_slam_analytica_jacobian_tpu.models.camera import Camera as JCamera
+from gs_slam_analytica_jacobian_tpu.ops import losses as jlosses
+from gs_slam_analytica_jacobian_tpu.ops.lie import se3_exp as jse3_exp
+from gs_slam_analytica_jacobian_tpu.slam import render_api as japi
+from gs_slam_analytica_jacobian_tpu.slam import tracking as jtr
+from gs_slam_analytica_jacobian_tpu_torch.models import gaussian_map as tgmap
+from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera
+from gs_slam_analytica_jacobian_tpu_torch.models.camera import PoseState
+from gs_slam_analytica_jacobian_tpu_torch.ops import losses as tlosses
+from gs_slam_analytica_jacobian_tpu_torch.slam import render_api as tapi
+from gs_slam_analytica_jacobian_tpu_torch.slam import tracking as ttr
+
+W, H = 96, 64
+CAP = 1 << 13
+
+
+def T(x):
+    return torch.tensor(np.array(x))
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """tests/test_tracking.py::small_scene, built in both packages from
+    the same numpy arrays; ground truth rendered by the reference."""
+    cam_j = JCamera.create(np.eye(3), np.zeros(3), 60.0, 60.0,
+                           (W - 1) / 2, (H - 1) / 2, W, H)
+    cam_t = Camera.create(np.eye(3), np.zeros(3), 60.0, 60.0,
+                          (W - 1) / 2, (H - 1) / 2, W, H, device="cpu")
+    rng = np.random.default_rng(3)
+    n = 600
+    gm_j = jgmap.from_numpy(
+        xyz=np.stack([rng.uniform(-1.2, 1.2, n), rng.uniform(-0.8, 0.8, n),
+                      rng.uniform(0.5, 4.0, n)], -1).astype(np.float32),
+        features_dc=rng.normal(size=(n, 1, 3)).astype(np.float32) * 0.3,
+        features_rest=np.zeros((n, 0, 3), np.float32),
+        scaling=rng.normal(size=(n, 3)).astype(np.float32) * 0.3 - 2.3,
+        rotation=rng.normal(size=(n, 4)).astype(np.float32),
+        opacity=rng.normal(size=(n, 1)).astype(np.float32) + 1.0,
+        max_sh_degree=0)
+    gm_t = tgmap.from_jax_fields(
+        {f: np.asarray(getattr(gm_j, f)) for f in tgmap.ARRAY_FIELDS},
+        gm_j.max_sh_degree, gm_j.active_sh_degree, device="cpu")
+    out = japi.render(gm_j, cam_j, None, jnp.zeros(3), pair_capacity=CAP,
+                      interpret=True)
+    gt_image = np.clip(np.asarray(out.color), 0, 1)
+    gt_depth = np.asarray(out.depth)
+    mask = np.asarray(jlosses.compute_grad_mask(
+        jnp.asarray(gt_image.mean(axis=0, keepdims=True)), 1.1, "replica"))
+    tau = np.array([0.015, -0.012, 0.015, 0.005, 0.007, -0.004], np.float32)
+    T0 = np.asarray(jse3_exp(jnp.asarray(tau)))
+    return dict(cam_j=cam_j, cam_t=cam_t, gm_j=gm_j, gm_t=gm_t,
+                gt_image=gt_image, gt_depth=gt_depth, mask=mask,
+                R0=T0[:3, :3], t0=T0[:3, 3])
+
+
+def test_pyramid_helpers_and_cam_level():
+    x = np.random.default_rng(0).normal(size=(3, 68, 120)).astype(np.float32)
+    for s in (2, 3, 4):
+        for name in ("_pool_avg", "_pool_max", "_stride_center"):
+            a = getattr(ttr, name)(T(x), s).numpy()
+            b = np.asarray(getattr(jtr, name)(jnp.asarray(x), s))
+            np.testing.assert_allclose(a, b, atol=1e-6, rtol=0,
+                                       err_msg=(name, s))
+    cam_j = JCamera.create(np.eye(3), np.zeros(3), 600.0, 600.0, 599.5,
+                           339.5, 1200, 680)
+    cam_t = Camera.create(np.eye(3), np.zeros(3), 600.0, 600.0, 599.5,
+                          339.5, 1200, 680, device="cpu")
+    for s in (1, 2, 4):
+        cj, ct = jtr._cam_level(cam_j, s), ttr._cam_level(cam_t, s)
+        for f in ("fx", "fy", "cx", "cy", "width", "height"):
+            assert getattr(cj, f) == getattr(ct, f), (s, f)
+
+
+def test_flow_jacobian_and_grad_mask_match(scene):
+    sc = scene
+    out_j = japi.render(sc["gm_j"], sc["cam_j"], None, jnp.zeros(3),
+                        pair_capacity=CAP, interpret=True)
+    img, dep, opa = (np.asarray(out_j.color), np.asarray(out_j.depth),
+                     np.asarray(out_j.opacity))
+    Jc_j, Jd_j = jtr._flow_jacobian(sc["cam_j"], jnp.asarray(img),
+                                    jnp.asarray(dep), jnp.asarray(opa))
+    Jc_t, Jd_t = ttr._flow_jacobian(sc["cam_t"], T(img), T(dep), T(opa))
+    np.testing.assert_allclose(Jc_t.numpy(), np.asarray(Jc_j), atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(Jd_t.numpy(), np.asarray(Jd_j), atol=1e-6,
+                               rtol=0)
+    gray = img.mean(axis=0, keepdims=True)
+    for kind in ("replica", "generic"):
+        np.testing.assert_array_equal(
+            tlosses.compute_grad_mask(T(gray), 1.1, kind).numpy(),
+            np.asarray(jlosses.compute_grad_mask(jnp.asarray(gray), 1.1,
+                                                 kind)), err_msg=kind)
+    np.testing.assert_allclose(
+        float(tlosses.median_depth(T(dep), T(opa))),
+        float(jlosses.median_depth(jnp.asarray(dep), jnp.asarray(opa))),
+        rtol=1e-6)
+
+
+def _jax_assemble_Hg(Jc, Jd, image_ab, depth, opacity, sigma, gt_image,
+                     gt_depth, grad_mask, alpha=0.95, lm_lambda=1e-2):
+    """The reference's assemble_Hg (slam/tracking.py:604-624, a closure
+    of _gn_level) written out in jnp; checked against the reference's own
+    H below."""
+    n3hw = 3.0 * gt_image.shape[1] * gt_image.shape[2]
+    nhw = float(gt_image.shape[1] * gt_image.shape[2])
+    rgb_mask = (gt_image.sum(axis=0, keepdims=True) > 0.01).astype(
+        jnp.float32)
+    Jc_f, Jd_f = Jc.reshape(8, -1), Jd.reshape(8, -1)
+    jn_c = jnp.sqrt(jnp.sum(Jc[:6] * Jc[:6], axis=0))
+    jn_d = jnp.sqrt(jnp.sum(Jd[:6] * Jd[:6], axis=0))
+    r_c = image_ab - gt_image
+    w_c = ((opacity * grad_mask * rgb_mask)
+           / (jnp.abs(r_c) + 1e-3 + jn_c * sigma))
+    w_c = alpha * w_c / n3hw
+    H_mat = (Jc_f * w_c.reshape(1, -1)) @ Jc_f.T
+    g_vec = Jc_f @ (w_c * r_c).reshape(-1)
+    depth_mask = ((gt_depth > 0.01) & (opacity > 0.95)).astype(jnp.float32)
+    r_d = depth - gt_depth
+    w_d = ((1.0 - alpha) * depth_mask
+           / (jnp.abs(r_d) + 1e-3 + jn_d * sigma) / nhw)
+    H_mat = H_mat + (Jd_f * w_d.reshape(1, -1)) @ Jd_f.T
+    g_vec = g_vec + Jd_f @ (w_d * r_d).reshape(-1)
+    H_mat = H_mat + lm_lambda * jnp.diag(jnp.maximum(jnp.diag(H_mat), 1e-8))
+    return H_mat + 1e-8 * jnp.eye(8), g_vec
+
+
+def test_one_irls_iteration_H_g_match(scene):
+    sc = scene
+    gt_i, gt_d, mask = sc["gt_image"], sc["gt_depth"], sc["mask"]
+    # the reference's level loop, one iteration: returns that iteration's H
+    res_j = jtr._gn_level(
+        sc["gm_j"], sc["cam_j"], jnp.asarray(sc["R0"]), jnp.asarray(sc["t0"]),
+        jnp.zeros(()), jnp.zeros(()), jnp.asarray(gt_i), jnp.asarray(gt_d),
+        jnp.asarray(mask), jnp.zeros(3), 0.01, 0.95, False, 1, CAP, True,
+        False, 1e-3, 1e-2, 4.0, H_frozen=None, curv="flow", exact_iters=0)
+    res_t = ttr._gn_level(
+        sc["gm_t"], sc["cam_t"], T(sc["R0"]), T(sc["t0"]), torch.zeros(()),
+        torch.zeros(()), T(gt_i), T(gt_d), T(mask), torch.zeros(3), 0.01,
+        0.95, False, 1, CAP, 1e-2, 4.0, H_frozen=None, curv="flow",
+        exact_iters=0)
+    H_ref = np.asarray(res_j[5][0])
+    np.testing.assert_allclose(res_t[5][0].numpy(), H_ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(H_ref).max())
+    # the step's length (sigma tracks |delta| here) pins H^-1 g as well
+    np.testing.assert_allclose(float(res_t[7]), float(res_j[7]), rtol=1e-4)
+    np.testing.assert_array_equal(res_t[6].pair_gid1.numpy(),
+                                  np.asarray(res_j[6].pair_gid1))
+
+    # (H, g) from the same render of the start pose
+    cam_j = sc["cam_j"].replace(R=jnp.asarray(sc["R0"]),
+                                t=jnp.asarray(sc["t0"]))
+    out_j = japi.render(sc["gm_j"], cam_j, None, jnp.zeros(3),
+                        pair_capacity=CAP, interpret=True, plan=res_j[6],
+                        need_n_touched=False)
+    Jc, Jd = jtr._flow_jacobian(cam_j, out_j.color, out_j.depth,
+                                out_j.opacity)
+    H_copy, g_ref = _jax_assemble_Hg(Jc, Jd, out_j.color, out_j.depth,
+                                     out_j.opacity, 0.01, jnp.asarray(gt_i),
+                                     jnp.asarray(gt_d), jnp.asarray(mask))
+    np.testing.assert_allclose(np.asarray(H_copy), H_ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(H_ref).max())
+    cam_t = sc["cam_t"].replace(R=T(sc["R0"]), t=T(sc["t0"]))
+    out_t = tapi.render(sc["gm_t"], cam_t, PoseState.zero(device="cpu"),
+                        torch.zeros(3), plan=res_t[6], need_n_touched=False,
+                        device="cpu")
+    Jc_t, Jd_t = ttr._flow_jacobian(cam_t, out_t.color, out_t.depth,
+                                    out_t.opacity)
+    H_t, g_t = ttr.assemble_Hg(Jc_t, Jd_t, out_t.color, out_t.depth,
+                               out_t.opacity, 0.01, T(gt_i), T(gt_d),
+                               T(mask), 0.01, 0.95, False, 1e-2)
+    g_ref = np.asarray(g_ref)
+    np.testing.assert_allclose(H_t.numpy(), H_ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(H_ref).max())
+    np.testing.assert_allclose(g_t.numpy(), g_ref, rtol=1e-4,
+                               atol=1e-4 * np.abs(g_ref).max())
+
+
+def test_track_frame_pyr_matches_jax(scene):
+    sc = scene
+    kw = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
+              pair_capacity=CAP, levels=(2, 1), level_iters=(4, 6),
+              level_exact=(0, 0), curv="flow", final_level=1,
+              match_blur=True, plan_pad=4.0)
+    res_j = jtr.track_frame_pyr(
+        sc["gm_j"], sc["cam_j"], jnp.asarray(sc["R0"]),
+        jnp.asarray(sc["t0"]), jnp.asarray(sc["gt_image"]),
+        jnp.asarray(sc["gt_depth"]), jnp.asarray(sc["mask"]), jnp.zeros(3),
+        interpret=True, **kw)
+    res_t = ttr.track_frame_pyr(
+        sc["gm_t"], sc["cam_t"], T(sc["R0"]), T(sc["t0"]),
+        T(sc["gt_image"]), T(sc["gt_depth"]), T(sc["mask"]), torch.zeros(3),
+        device="cpu", **kw)
+    R_j, t_j = np.asarray(res_j[0]), np.asarray(res_j[1])
+    R_t, t_t = res_t[0].numpy(), res_t[1].numpy()
+    assert np.linalg.norm(t_t - t_j) < 1e-4, (t_t, t_j)
+    assert np.linalg.norm(R_t - R_j) < 1e-4
+    assert abs(int(res_t[4]) - int(res_j[4])) <= 1, (res_t[4], res_j[4])
+    # it tracked: the start pose was ~2.4 cm off the identity ground truth
+    assert np.linalg.norm(t_t) < 2e-3
+    nt_j = float(np.asarray(res_j[5].n_touched).sum())
+    nt_t = float(res_t[5].n_touched.sum())
+    assert nt_j > 0 and abs(nt_t - nt_j) <= 0.005 * nt_j, (nt_t, nt_j)
+    np.testing.assert_array_equal(res_t[8].numpy(), np.asarray(res_j[8]))
+    np.testing.assert_array_equal(res_t[10].numpy(), np.asarray(res_j[10]))
+    assert np.isfinite(float(res_t[6]))
+    np.testing.assert_allclose(float(res_t[6]), float(res_j[6]), rtol=1e-3)
+
+
+@pytest.mark.parametrize("flag", [
+    dict(level_exact=(0, 1)), dict(level_exact=None), dict(curv="fd"),
+    dict(tile16=True), dict(kernel_bf16=True), dict(kernel_mxu=True),
+    dict(level_subset=(1.0, 0.5)), dict(use_oracle=True)])
+def test_unported_tracker_options_raise(scene, flag):
+    sc = scene
+    kw = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
+              pair_capacity=CAP, levels=(2, 1), level_iters=(1, 1),
+              level_exact=(0, 0), curv="flow", device="cpu")
+    kw.update(flag)
+    with pytest.raises(NotImplementedError):
+        ttr.track_frame_pyr(sc["gm_t"], sc["cam_t"], T(sc["R0"]),
+                            T(sc["t0"]), T(sc["gt_image"]),
+                            T(sc["gt_depth"]), T(sc["mask"]), torch.zeros(3),
+                            **kw)
