@@ -38,6 +38,8 @@ LIBRARIES = {
     "tile_kernel2_fwd": ("tile_kernel2_fwd.cu", "composite32_fwd",
                          [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                           _INT, _VP]),
+    "tile_kernel2_bwd": ("tile_kernel2_bwd.cu", "composite32_bwd",
+                         [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,11 @@
 """Per-Gaussian projection math: cov3D, EWA cov2D, screen projection
 (torch port of ops/gaussian_math.py).
 
-Forward only in this port: the tracking path renders without gradients
-through ``preprocess``. The pose enters as ``w2c_eff = se3_exp(tau) @ w2c``
-exactly as in the reference.
+Differentiable by torch autograd in every Gaussian parameter and the
+pose delta tau, which enters as ``w2c_eff = se3_exp(tau) @ w2c`` exactly
+as in the reference. The reference's stop-gradients are mirrored: the
+frustum clamp's clamped branch, ``campos`` in the SH view direction, and
+the cull extents' ``q``, ``a`` and ``c``.
 """
 
 from __future__ import annotations
@@ -162,16 +164,22 @@ def preprocess(
     det_inv = 1.0 / det_safe
     conic = torch.stack([c * det_inv, -b * det_inv, a * det_inv], dim=-1)
 
-    mid = 0.5 * (a + c)
-    lam = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    # radius is a ceil, whose derivative is zero: computed off the graph,
+    # so no sqrt backward at a zero argument (0 * inf) can reach a, b, c
+    a_d, c_d = a.detach(), c.detach()
+    mid = 0.5 * (a_d + c_d)
+    lam = mid + torch.sqrt(torch.clamp(mid * mid - det.detach(), min=0.1))
     radius = torch.ceil(3.0 * torch.sqrt(torch.clamp(lam, min=0.0)))
 
     # Tight per-axis cull half-extents (see the reference's note): pixels
     # outside them are alpha-rejected by the compositing kernel anyway.
-    q = torch.clamp(2.0 * torch.log(torch.clamp(255.0 * opacities,
-                                                min=1e-12)), min=0.0)
-    sg_a = torch.clamp(a, min=0.0)
-    sg_c = torch.clamp(c, min=0.0)
+    # q, a and c are stop-gradients as in the reference: at q = 0 (opacity
+    # below 1/255) sqrt's backward would inject NaN.
+    opa_d = opacities.detach()
+    q = torch.clamp(2.0 * torch.log(torch.clamp(255.0 * opa_d, min=1e-12)),
+                    min=0.0)
+    sg_a = torch.clamp(a_d, min=0.0)
+    sg_c = torch.clamp(c_d, min=0.0)
     half_x = torch.minimum(radius, torch.ceil(torch.sqrt(q * sg_a)))
     half_y = torch.minimum(radius, torch.ceil(torch.sqrt(q * sg_c)))
     nonempty = q > 0.0

@@ -1,10 +1,14 @@
-"""Tiled renderer, forward (torch port of ops/renderer_tiled.py):
-preprocess -> pair plan -> packed gather -> 32x32 compositing kernel.
+"""Tiled renderer (torch port of ops/renderer_tiled.py): preprocess ->
+pair plan -> packed gather -> 32x32 compositing kernel.
 
-On CUDA tensors the compositing runs the hand-written kernel
-(ops/tile_kernel2.py); on CPU tensors its plain PyTorch version. The
-renderer's backward (the reference's custom VJPs) is not ported yet, so
-``render`` runs without autograd.
+``render`` is differentiable in every Gaussian parameter and the pose
+delta tau: torch autograd supplies the preprocess backward, the gather's
+backward is the cumsum segment-reduce (ops/pair_gather.py) and the
+compositing's is the backward kernel (ops/tile_kernel2.py). The plan is
+non-differentiable structure, reusable across iterations (``plan=``).
+On CUDA tensors the compositing runs the hand-written kernels; on CPU
+tensors their plain PyTorch versions. ``ops/renderer_ref.py`` is the
+oracle it is tested against.
 
 Flags of the reference that are not ported yet — ``tile16`` (16x16
 kernels), ``bf16`` and ``mxu`` (kernel variants) — raise
@@ -13,7 +17,7 @@ NotImplementedError instead of being ignored.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import torch
 
@@ -21,20 +25,8 @@ from ..device import require_on, resolve_device
 from .binning2 import FEAT_DIM, PairPlan, plan_pairs
 from .gaussian_math import Preprocessed, preprocess
 from .pair_gather import pair_gather, segment_reduce_pairs
+from .renderer_ref import RenderOutput
 from .tile_kernel2 import TPX, TPY, K, composite32, grid_dims
-
-
-class RenderOutput(NamedTuple):
-    """Mirror of the reference's RenderOutput (ops/renderer_ref.py)."""
-
-    color: torch.Tensor       # (3, H, W)
-    depth: torch.Tensor       # (1, H, W)
-    opacity: torch.Tensor     # (1, H, W)
-    final_T: torch.Tensor     # (H, W)
-    radii: torch.Tensor       # (N,) float (0 for culled)
-    n_touched: torch.Tensor   # (N,) int32
-    mean2d: torch.Tensor      # (N, 2) pixel coords
-    overflow: torch.Tensor = None  # pairs dropped by the binner
 
 
 def _not_ported(**flags):
@@ -48,10 +40,13 @@ def _not_ported(**flags):
 
 def pack_table(prep: Preprocessed) -> torch.Tensor:
     """(N, 16) per-gaussian feature rows for the pair gather:
-    [mean2d(2), conic(3), opacity, color(3), depth, rect16(4), pad(2)]."""
+    [mean2d(2), conic(3), opacity, color(3), depth, rect16(4), pad(2)].
+    The rect rides along without gradient so the kernel's per-pixel rect
+    test uses the current means even under a reused plan."""
     n = prep.depth.shape[0]
     dt = prep.mean2d.dtype
-    rect = torch.cat([prep.rect_min.to(dt), prep.rect_max.to(dt)], dim=-1)
+    rect = torch.cat([prep.rect_min.to(dt), prep.rect_max.to(dt)],
+                     dim=-1).detach()
     return torch.cat([
         prep.mean2d,
         prep.conic,
@@ -83,7 +78,6 @@ def make_plan(
                       opa_growth=opa_growth)
 
 
-@torch.no_grad()
 def render(
     means3d: torch.Tensor,
     cov6: torch.Tensor,
@@ -107,8 +101,9 @@ def render(
     low_pass: float = 0.3,
     device=None,
 ) -> RenderOutput:
-    """Forward render. ``device=None`` means CUDA (raises without a GPU);
-    every tensor argument must already lie on that device."""
+    """Render, differentiable in means3d, cov6, opacities, shs and tau.
+    ``device=None`` means CUDA (raises without a GPU); every tensor
+    argument must already lie on that device."""
     _not_ported(tile16=tile16, bf16=bf16, mxu=mxu)
     dev = resolve_device(device)
     require_on(dev, means3d=means3d, cov6=cov6, opacities=opacities,

@@ -1,8 +1,9 @@
-"""32x32 forward alpha compositing: the CUDA kernel's wrappers and their
-plain PyTorch version (counterpart of ops/pallas/tile_kernel2.py).
+"""32x32 alpha compositing, forward and backward: the CUDA kernels'
+wrappers, their plain PyTorch versions and the autograd function that
+joins them (counterpart of ops/pallas/tile_kernel2.py).
 
-The kernel (``csrc/tile_kernel2_fwd.cu``) replaces the Pallas TPU kernel
-``make_forward_kernel`` in both of its call forms:
+The forward kernel (``csrc/tile_kernel2_fwd.cu``) replaces the Pallas TPU
+kernel ``make_forward_kernel`` in both of its call forms:
 
 - ``composite32_fwd`` — without per-pair n_touched (``_fwd_impl``
   ``with_ntouch=False``, pallas_call at tile_kernel2.py:662): every IRLS
@@ -11,17 +12,27 @@ The kernel (``csrc/tile_kernel2_fwd.cu``) replaces the Pallas TPU kernel
   the blend-weight rule ``nt_weight`` (pallas_call at :642): the
   keyframing and ground-truth renders.
 
-What bounds the kernel on the H100 and what its design does about it is
-noted in the CUDA source. Each wrapper checks device, dtype, shape and
+The backward kernel (``csrc/tile_kernel2_bwd.cu``, wrapper
+``composite32_bwd``) replaces ``make_backward_kernel`` (``_bwd_impl``,
+pallas_call at :699): per-pair gradient rows
+``[d_mx, d_my, d_ca, d_cb, d_cc, d_opa, d_rgb(3), d_depth, 0 x 6]`` from
+the cotangents of color, depth and final T.
+
+What bounds each kernel on the H100 and what its design does about it is
+noted in its CUDA source. Each wrapper checks device, dtype, shape and
 contiguity, launches on the current stream and counts its launches in
 its ``launches`` attribute. On a CUDA tensor it launches the kernel or
 raises; only a tensor on the CPU takes the plain version
-(``composite32_plain``), which is vectorized over tiles x pixels and
-loops over pair chunks. The plain version is the kernel's reference, not
-a yardstick of speed.
+(``composite32_plain``, ``composite32_bwd_plain``), which is vectorized
+over tiles x pixels and loops over pair chunks. The plain versions are
+the kernels' references, not a yardstick of speed.
 
-Outputs are written in (C, H, W) directly; the TPU's block-permuted
-layout and ``assemble_image`` do not exist here.
+``composite32`` is differentiable in ``feat`` (a ``torch.autograd
+.Function``): its forward runs a forward wrapper, its backward
+``composite32_bwd``.
+
+Images are read and written in (C, H, W) directly; the TPU's
+block-permuted layout and ``assemble_image`` do not exist here.
 """
 
 from __future__ import annotations
@@ -56,6 +67,19 @@ class Composite2Out(NamedTuple):
     n_touched_pairs: torch.Tensor  # (B_al,) f32 per-pair touch counts
 
 
+def _tile_pixels(n_tx: int, n_ty: int, W: int, H: int, dev):
+    """Per (tile, pixel) coordinates, (n_tiles, P) each: pixel q of tile t
+    is (x, y) = (tx*32 + q%32, ty*32 + q//32). Returns (px, py, pix_in,
+    t16x, t16y) with the 16-px cell of each pixel."""
+    q = torch.arange(P, device=dev)
+    t_ar = torch.arange(n_tx * n_ty, device=dev)
+    xi = (t_ar % n_tx)[:, None] * TPX + (q % TPX)[None]
+    yi = (t_ar // n_tx)[:, None] * TPY + (q // TPX)[None]
+    px, py = xi.to(torch.float32), yi.to(torch.float32)
+    return px, py, (xi < W) & (yi < H), torch.floor(px / 16.0), \
+        torch.floor(py / 16.0)
+
+
 def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                n_ty: int, W: int, H: int, with_ntouch: bool = True,
                nt_weight: bool = False
@@ -78,14 +102,7 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
     start = ranges[:, 0].long()
     n_pairs = (ranges[:, 1] - ranges[:, 0]).long()
 
-    q = torch.arange(P, device=dev)
-    t_ar = torch.arange(n_tiles, device=dev)
-    xi = (t_ar % n_tx)[:, None] * TPX + (q % TPX)[None]
-    yi = (t_ar // n_tx)[:, None] * TPY + (q // TPX)[None]
-    pix_in = (xi < W) & (yi < H)                               # (T, P)
-    px, py = xi.to(f32), yi.to(f32)
-    t16x = torch.floor(px / 16.0)
-    t16y = torch.floor(py / 16.0)
+    px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev)
 
     T = torch.ones(n_tiles, P, dtype=f32, device=dev)
     done = ~pix_in
@@ -228,11 +245,226 @@ def composite32_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
 composite32_fwd_ntouch.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+N_ROWS = 10       # gradient columns a pair row carries (the rest stay 0)
+
+
+def _to_tiles(img: torch.Tensor, n_tx: int, n_ty: int) -> torch.Tensor:
+    """(C, H, W) -> (n_tiles, C, P), zero padded to whole tiles; pixel q of
+    tile t is (x, y) = (tx*32 + q%32, ty*32 + q//32)."""
+    C, h, w = img.shape
+    x = torch.nn.functional.pad(img, (0, n_tx * TPX - w, 0, n_ty * TPY - h))
+    return (x.reshape(C, n_ty, TPY, n_tx, TPX).permute(1, 3, 0, 2, 4)
+            .reshape(n_tx * n_ty, C, P))
+
+
+def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
+                   d_depth, d_T, n_tx: int, n_ty: int, W: int, H: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch backward of the compositing. Returns (dfeat (B_al,
+    16), pairs_walked per tile, the count of included (pair, pixel)
+    cells).
+
+    The forward walk is recomputed pixel by pixel with the forward's exact
+    operation order, so every inclusion decision matches it. Per included
+    (pair, pixel) cell, with A = rgb.dC + depth.dD, the running inclusive
+    prefix pA of w*A and Stot = C.dC + D.dD from the forward's sums
+    (before background):
+
+        dL/dalpha = A T_excl - (dT T_final + Stot - pA) / max(1 - alpha, 1e-6)
+
+    and the gradient flows through the unclamped falloff G = a_un / opa:
+    d_opa = sum G dL/dalpha, then the five quadratic-form rows and
+    d_rgb, d_depth = sum w dC, dD. Rows of dead slots, skipped pairs and
+    pairs after the tile's early exit are exactly zero; columns 10-15 are
+    zero."""
+    dev = feat.device
+    f32 = torch.float32
+    chunk = PLAIN_CHUNK
+    n_tiles = n_tx * n_ty
+    B_al = feat.shape[0]
+    start = ranges[:, 0].long()
+    n_pairs = (ranges[:, 1] - ranges[:, 0]).long()
+
+    px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev)
+
+    fwd = _to_tiles(torch.cat([color_sum, depth_sum[None], final_T[None]]),
+                    n_tx, n_ty)                                # (T, 5, P)
+    cot = _to_tiles(torch.cat([d_color, d_depth[None], d_T[None]]),
+                    n_tx, n_ty)
+    stot = (((cot[:, 0] * fwd[:, 0] + cot[:, 1] * fwd[:, 1])
+             + cot[:, 2] * fwd[:, 2]) + cot[:, 3] * fwd[:, 3])
+    c0 = cot[:, 4] * fwd[:, 4] + stot                          # (T, P)
+
+    T = torch.ones(n_tiles, P, dtype=f32, device=dev)
+    done = ~pix_in
+    pA = torch.zeros(n_tiles, P, dtype=f32, device=dev)
+    dfeat = torch.zeros(B_al, feat.shape[1], dtype=f32, device=dev)
+    walked = torch.zeros(n_tiles, dtype=torch.long, device=dev)
+    included = torch.zeros((), dtype=torch.long, device=dev)
+    n_chunks = (n_pairs + chunk - 1) // chunk
+    k_ar = torch.arange(chunk, device=dev)
+
+    for c in range(int(n_chunks.max().item()) if n_tiles else 0):
+        walking = (c < n_chunks) & ~done.all(dim=1)
+        sel = torch.nonzero(walking).squeeze(1)
+        if sel.numel() == 0:
+            break
+        rows = c * chunk + k_ar
+        row_ok = rows[None] < n_pairs[sel][:, None]             # (S, k)
+        idx = torch.clamp(start[sel][:, None] + rows[None], max=B_al - 1)
+        f = feat[idx]                                          # (S, k, 16)
+
+        px_s, py_s = px[sel][:, None], py[sel][:, None]         # (S, 1, P)
+        mx, my = f[..., 0:1], f[..., 1:2]
+        ca, cb, cc = f[..., 2:3], f[..., 3:4], f[..., 4:5]
+        opa = f[..., 5:6]
+        dx = mx - px_s
+        dy = my - py_s
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        a_un = opa * torch.exp(power)
+        alpha = torch.clamp(a_un, max=ALPHA_MAX)
+        t16x_s, t16y_s = t16x[sel][:, None], t16y[sel][:, None]
+        rect_ok = ((t16x_s >= f[..., 10:11]) & (t16x_s < f[..., 12:13])
+                   & (t16y_s >= f[..., 11:12]) & (t16y_s < f[..., 13:14]))
+        ok = (row_ok[..., None] & rect_ok & (power <= 0.0)
+              & (alpha >= ALPHA_MIN))                          # (S, k, P)
+        G_all = a_un / torch.clamp(opa, min=1e-12)
+
+        T_s, done_s, pA_s = T[sel], done[sel], pA[sel]
+        cot_s, c0_s = cot[sel], c0[sel]
+        acc = torch.zeros(sel.numel(), chunk, N_ROWS, dtype=f32, device=dev)
+        for k in range(chunk):
+            walked[sel] += (row_ok[:, k] & ~done_s.all(dim=1)).long()
+            live = ok[:, k] & ~done_s
+            a_k = alpha[:, k]
+            T_incl = T_s * (1.0 - a_k)
+            term = live & (T_incl < T_EPS)
+            inc = live & ~term
+            included += inc.sum()
+            zero = torch.zeros_like(a_k)
+            w = torch.where(inc, a_k * T_s, zero)
+            fk = f[:, k]                                       # (S, 16)
+            A = (((fk[:, 6:7] * cot_s[:, 0] + fk[:, 7:8] * cot_s[:, 1])
+                  + fk[:, 8:9] * cot_s[:, 2]) + fk[:, 9:10] * cot_s[:, 3])
+            pA_s = pA_s + w * A
+            inv_om = 1.0 / torch.clamp(1.0 - a_k, min=1e-6)
+            dLda = torch.where(inc, A * T_s - inv_om * (c0_s - pA_s), zero)
+            # masked: where power > 0 the falloff may overflow to inf
+            G = torch.where(inc, G_all[:, k], zero)
+            dLdG = fk[:, 5:6] * dLda
+            gdx = G * dx[:, k]
+            gdy = G * dy[:, k]
+            dG_ddx = -gdx * fk[:, 2:3] - gdy * fk[:, 3:4]
+            dG_ddy = -gdy * fk[:, 4:5] - gdx * fk[:, 3:4]
+            vals = torch.stack([
+                dLdG * dG_ddx, dLdG * dG_ddy, dLdG * (-0.5 * gdx * dx[:, k]),
+                dLdG * (-gdx * dy[:, k]), dLdG * (-0.5 * gdy * dy[:, k]),
+                G * dLda, w * cot_s[:, 0], w * cot_s[:, 1],
+                w * cot_s[:, 2], w * cot_s[:, 3]], dim=1)      # (S, 10, P)
+            acc[:, k] = vals.sum(dim=-1)
+            T_s = torch.where(inc, T_incl, T_s)
+            done_s = done_s | term
+        T[sel], done[sel], pA[sel] = T_s, done_s, pA_s
+        dfeat[idx[row_ok], :N_ROWS] = acc[row_ok]
+    return dfeat, walked, included
+
+
+def composite32_bwd_plain(feat, ranges, color_sum, depth_sum, final_T,
+                          d_color, d_depth, d_T, n_tx, n_ty, W, H
+                          ) -> torch.Tensor:
+    """Plain PyTorch version of the backward kernel (any device)."""
+    return plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T,
+                          d_color, d_depth, d_T, n_tx, n_ty, W, H)[0]
+
+
+def _check_planes(feat: torch.Tensor, W: int, H: int, **planes):
+    for name, x in planes.items():
+        want = (3, H, W) if x.dim() == 3 else (H, W)
+        if x.dtype != torch.float32 or tuple(x.shape) != want:
+            raise ValueError(f"{name} must be {want} float32, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+        if x.device != feat.device:
+            raise ValueError(f"{name} lies on {x.device}, feat on "
+                             f"{feat.device}")
+
+
+def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
+                    color_sum: torch.Tensor, depth_sum: torch.Tensor,
+                    final_T: torch.Tensor, d_color: torch.Tensor,
+                    d_depth: torch.Tensor, d_T: torch.Tensor, n_tx: int,
+                    n_ty: int, W: int, H: int) -> torch.Tensor:
+    """Per-pair gradient rows (B_al, 16) from the forward's planes
+    (color_sum (3,H,W) before background, depth_sum, final_T) and their
+    cotangents. Rows the kernel never writes keep the zero they were
+    allocated with."""
+    _check(feat, ranges, n_tx, n_ty)
+    _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
+                  final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
+    if feat.device.type == "cpu":
+        return composite32_bwd_plain(feat, ranges, color_sum, depth_sum,
+                                     final_T, d_color, d_depth, d_T, n_tx,
+                                     n_ty, W, H)
+    if feat.data_ptr() % 16:
+        raise ValueError("feat must be 16-byte aligned for float4 loads")
+    fn = _build.load("tile_kernel2_bwd").composite32_bwd
+    dfeat = torch.zeros(feat.shape[0], FEAT_DIM, dtype=torch.float32,
+                        device=feat.device)
+    planes = [x.contiguous() for x in (color_sum, depth_sum, final_T,
+                                       d_color, d_depth, d_T)]
+    with torch.cuda.device(feat.device):
+        stream = torch.cuda.current_stream(feat.device).cuda_stream
+        err = fn(ctypes.c_void_p(feat.data_ptr()),
+                 ctypes.c_void_p(ranges.data_ptr()),
+                 *[ctypes.c_void_p(x.data_ptr()) for x in planes],
+                 ctypes.c_void_p(dfeat.data_ptr()),
+                 n_tx * n_ty, n_tx, W, H, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"composite32_bwd launch failed: CUDA error {err}")
+    composite32_bwd.launches += 1
+    return dfeat
+
+
+composite32_bwd.launches = 0
+
+
+class _Composite32(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` around ``composite32``: the
+    forward runs a forward wrapper and keeps feat, ranges and the output
+    planes; the backward hands their cotangents (zeros where an output got
+    none) to ``composite32_bwd``. n_touched is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+                nt_weight):
+        if with_ntouch:
+            out = composite32_fwd_ntouch(feat, ranges, n_tx, n_ty, W, H,
+                                         nt_weight)
+        else:
+            out = composite32_fwd(feat, ranges, n_tx, n_ty, W, H)
+        ctx.save_for_backward(feat, ranges, out.color_sum, out.depth_sum,
+                              out.final_T)
+        ctx.grid = (n_tx, n_ty, W, H)
+        ctx.mark_non_differentiable(out.n_touched_pairs)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, d_color, d_depth, d_T, _d_ntouch):
+        feat, ranges, color_sum, depth_sum, final_T = ctx.saved_tensors
+        cots = [torch.zeros_like(x) if g is None else g
+                for g, x in ((d_color, color_sum), (d_depth, depth_sum),
+                             (d_T, final_T))]
+        dfeat = composite32_bwd(feat, ranges, color_sum, depth_sum, final_T,
+                                *cots, *ctx.grid)
+        return dfeat, None, None, None, None, None, None, None
+
+
 def composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch=True,
                 nt_weight=False) -> Composite2Out:
-    """Forward 32x32 compositing (the reference's ``composite32`` without
-    its VJP). ``with_ntouch=False`` returns zero n_touched."""
-    if with_ntouch:
-        return composite32_fwd_ntouch(feat, ranges, n_tx, n_ty, W, H,
-                                      nt_weight)
-    return composite32_fwd(feat, ranges, n_tx, n_ty, W, H)
+    """Differentiable 32x32 compositing (the reference's ``composite32``).
+    ``with_ntouch=False`` returns zero n_touched."""
+    return Composite2Out(*_Composite32.apply(feat, ranges, n_tx, n_ty, W, H,
+                                             with_ntouch, nt_weight))

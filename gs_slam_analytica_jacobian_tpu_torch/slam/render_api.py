@@ -1,5 +1,7 @@
-"""render(): the map + viewpoint API over the tiled renderer (torch port of
-slam/render_api.py), forward only."""
+"""render(): the map + viewpoint API over the tiled renderer and the
+dense oracle (torch port of slam/render_api.py). ``render`` is
+differentiable; ``make_render_plan`` builds non-differentiable
+structure."""
 
 from __future__ import annotations
 
@@ -11,8 +13,9 @@ from ..device import require_on, resolve_device
 from ..models.camera import Camera, PoseState
 from ..models.gaussian_map import GaussianMap
 from ..ops import gaussian_math as gmath
-from ..ops import renderer_tiled
-from ..ops.renderer_tiled import RenderOutput, make_plan
+from ..ops import renderer_ref, renderer_tiled
+from ..ops.renderer_ref import RenderOutput
+from ..ops.renderer_tiled import make_plan
 
 
 def _check_inputs(gm: GaussianMap, cam: Camera, device):
@@ -38,27 +41,30 @@ def render(
     low_pass: float = 0.3,
     device=None,
 ) -> RenderOutput:
-    """Render ``gm`` from ``cam`` (+ pose delta). ``device=None`` means
-    CUDA; the map and camera must lie on the device. ``use_oracle`` (the
-    reference's dense jnp renderer) is not ported and raises."""
-    if use_oracle:
-        raise NotImplementedError(
-            "use_oracle: the dense oracle renderer is not ported yet")
+    """Render ``gm`` from ``cam`` (+ pose delta), differentiable in the
+    map's tensors and ``pose.tau``. ``device=None`` means CUDA; the map and
+    camera must lie on the device. ``use_oracle`` selects the dense
+    oracle (ops/renderer_ref.py), which, as in the reference, takes none
+    of the tiled renderer's options."""
     dev = _check_inputs(gm, cam, device)
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
     tau = (pose.tau if pose is not None
            else torch.zeros(6, dtype=torch.float32, device=dev))
-    return renderer_tiled.render(
+    kwargs = dict(
         means3d=gm.xyz, cov6=gm.get_cov6(scaling_modifier),
         opacities=gm.get_opacity(), shs=gm.get_features(),
         sh_degree=gm.active_sh_degree, w2c=cam.w2c(),
         proj=cam.projection(), tau=tau,
         fx=cam.fx, fy=cam.fy, width=cam.width, height=cam.height,
         tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, bg=bg, active=gm.active,
-        pair_capacity=pair_capacity, plan=plan,
+        device=dev)
+    if use_oracle:
+        return renderer_ref.render(**kwargs)
+    return renderer_tiled.render(
+        **kwargs, pair_capacity=pair_capacity, plan=plan,
         need_n_touched=need_n_touched, bf16=bf16, tile16=tile16,
-        nt_weight=nt_weight, mxu=mxu, low_pass=low_pass, device=dev)
+        nt_weight=nt_weight, mxu=mxu, low_pass=low_pass)
 
 
 def mark_visible(means3d: torch.Tensor, w2c: torch.Tensor,

@@ -68,9 +68,11 @@ def test_no_source_imports_jax_package():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
+    from gs_slam_analytica_jacobian_tpu_torch import jacobian_test
     from gs_slam_analytica_jacobian_tpu_torch.device import resolve_device
     from gs_slam_analytica_jacobian_tpu_torch.models import gaussian_map
     from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera
+    from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_ref
     from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled
     from gs_slam_analytica_jacobian_tpu_torch.slam import render_api
     from gs_slam_analytica_jacobian_tpu_torch.slam import tracking
@@ -105,6 +107,19 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
             gm, cam, cam.R, cam.t, torch.zeros(3, 32, 64), z, z, z, 0.0,
             0.0, 0.01, levels=(1,), level_iters=(1,), level_exact=(0,),
             curv="flow")
+    frame = (gm, cam, cam.R, cam.t, torch.zeros(3, 32, 64), z, z, z)
+    for tracker in (tracking.track_frame_gn, tracking.track_frame):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tracker(*frame, 0.0, 0.0, 0.01, max_iters=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tracking.polish_frame(*frame[:4], z[0], z[0], *frame[4:], 0.01)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        renderer_ref.render(gm.xyz, gm.get_cov6(), gm.get_opacity(),
+                            gm.get_features(), 0, cam.w2c(),
+                            cam.projection(), torch.zeros(6), 30.0, 30.0,
+                            64, 32, 1.0, 0.5, torch.zeros(3))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        jacobian_test.run(jacobian_test.load_fixture(), verbose=False)
     # explicitly on the CPU it renders (plain kernel version)
     out = render_api.render(gm, cam, device="cpu")
     assert out.color.shape == (3, 32, 64)
