@@ -40,6 +40,13 @@ Phases (each one that fails ends the run with a non-zero exit code):
    kernels; a table in chiprun_out/), and one more run at the adapted
    schedule bench.py recorded in BENCH_r05.json, which fails unless its
    mean translation error lies within 5% of the JAX tracker's there.
+   Then ``main-path-tile16``: the main path's schedule on 16-px plans and
+   the 16x16 kernels (TILE16_REPS timed passes), tracking frames rendered
+   on them; it fails above TILE16_MAX_ERR_M or if a 32x32 kernel
+   launched. Its tracking of the 32x32 frames is reported beside it.
+   Then, outside the counts, the schedule at both tile sizes on plans
+   re-sorted on the full depth key: the 16x16 tracker fails above 1 mm
+   or off the 32x32 one's error by more than TILE16_FULL_KEY_REL.
 4. The exact-gradient paths, each with the launch counts from 0:
    ``keyframe-polish`` (the main path's frames, each followed by
    polish_frame at full resolution, as the frontend does on keyframe
@@ -54,11 +61,29 @@ Phases (each one that fails ends the run with a non-zero exit code):
    above EXACT_MAX_ERR_M (EXACT_H_MAX_ERR_M with H carried),
    track_frame_gn not below its start error, track_frame at 1 mm or
    more.
-5. A ``{"kernels": [...]}`` line (launches summed over the paths), then
+5. The mapping paths, each with the launch counts from 0: ``mapping``
+   (32x32 kernels) and ``mapping-tile16`` (16x16 kernels). The room map
+   is rendered at MAP_KF keyframe poses KF_STEP bench steps apart; the
+   port's BackEnd, under the Replica base config as a dict (MAP_CONFIG,
+   cut by MAP_CUTS), initializes the map on keyframe 0, maps keyframes
+   1.. (fed 1 mm / 1 mrad off their poses, each with handle_keyframe over
+   the window) and refines colors for MAP_REFINE_ITERS iterations. Each
+   prints walls, iterations/s, active Gaussians, densify counts,
+   keyframe PSNR and pose error, host syncs per iteration and one
+   profiled keyframe; each fails on non-finite state, overflow, a window
+   loss that did not fall, a kernel of its tile size not launched or one
+   of the other launched, and on PSNR and pose-error limits; the two
+   fail unless they agree within MAP_T16_PSNR_DB and MAP_T16_ACTIVE_REL.
+6. A ``{"kernels": [...]}`` line (launches summed over the paths), then
    the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
-Without CUDA it exits non-zero before printing any result.
+Phase 2 also holds B3', B3 and B4 (the 16x16 kernels) against their plain
+versions at the tracker's and the mapping path's plans, and
+render(tile16=True) against render(tile16=False). A failed gate is
+printed and the run goes on; it exits non-zero before the result lines
+if any gate failed. Without CUDA it exits non-zero before printing any
+result.
 """
 
 import json
@@ -81,13 +106,16 @@ from gs_slam_analytica_jacobian_tpu_torch.ops import camera_math as cm  # noqa: 
 from gs_slam_analytica_jacobian_tpu_torch.ops import gaussian_math as gmath  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import losses  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel16 as tk16  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel2 as tk  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops.lie import se3_exp  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops.pair_gather import pair_gather  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops.renderer_tiled import (  # noqa: E402
     make_plan, pack_table)
 from gs_slam_analytica_jacobian_tpu_torch.scenes import make_cloud, make_room_map  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.slam import mapping  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.slam import tracking  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.slam.backend import BackEnd  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.slam.render_api import (  # noqa: E402
     make_render_plan, render)
 
@@ -167,11 +195,110 @@ EXACT_H_MAX_ERR_M = 3.0e-3
 # The Adam tracker's limit (the repo's 1 mm accuracy gate); it depends on
 # B2's gradient at every one of its 100 iterations.
 ADAM_MAX_ERR_M = 1e-3
+# The main path's schedule once more on 16-px plans and the 16x16
+# kernels: timed passes, and a regression limit on its mean translation
+# error, not an accuracy target. On the H100 (NVIDIA H100 80GB HBM3,
+# 700.00 W) it read 1.573 mm against the 32x32 main path's 0.982 mm in
+# the same call (1.546 mm on the 32x32 frames). The reference's packed
+# int32 sort key keeps 2 fewer depth bits on the 16-px grid, so more
+# depth-tied splats composite in emission order. The limit is about 1.25
+# times the reading.
+TILE16_REPS = 3
+TILE16_MAX_ERR_M = 2.0e-3
+# The same schedule at both tile sizes on plans re-sorted on the full
+# depth key (main_path_full_key), where the two composite alike: the
+# 16x16 tracker's mean error within this of the 32x32 tracker's there,
+# and under the 1 mm accuracy gate. On the H100 both read 0.834 mm
+# (0.015% apart), under the main path's 0.982 mm on the 32-px packed key.
+TILE16_FULL_KEY_REL = 0.05
+# render(tile16=True) against render(tile16=False) on the same scene and
+# fresh plans sorted on the full depth key: each pixel composites the
+# same pairs in the same order at both tile sizes, so the renders agree
+# to this (with the reference's packed key, depth ties on the finer grid
+# composite in emission order; that difference is reported, PERF.md).
+T16_FULL_KEY_TOL = 1e-5
+
+# The mapping paths: the room map rendered at MAP_KF keyframe poses
+# KF_STEP bench steps apart (Replica's kf_interval: 4,
+# configs/rgbd/replica/base_config.yaml:48), mapped by the port's backend
+# under the Replica base config, as the backend reads it (values copied
+# from base_config.yaml: Dataset :10-30, Training :32-62, opt_params
+# :64-80, model_params :82-83), with the cuts in MAP_CUTS. The backend
+# reads single_thread from Dataset (slam/backend.py:63 of the JAX
+# package) where the base YAML has it under Training (:58): it is set in
+# both, so a keyframe runs mapping_itr_num iterations (the scene files,
+# e.g. room0.yaml, set Dataset single_thread False: 10 iterations a
+# keyframe, mapping beside tracking). monocular follows from sensor_type
+# 'depth', as the driver derives it (slam/driver.py:44-47).
+MAP_KF = 10
+KF_STEP = 4
+MAP_CONFIG = {
+    "seed": 0,
+    "Dataset": dict(sensor_type="depth", pcd_downsample=64,
+                    pcd_downsample_init=32, adaptive_pointsize=True,
+                    point_size=0.05, type="replica", single_thread=True),
+    "Training": dict(
+        init_itr_num=1050, init_gaussian_update=100, init_gaussian_reset=500,
+        init_gaussian_th=0.005, init_gaussian_extent=30,
+        tracking_itr_num=100, mapping_itr_num=150, gaussian_update_every=150,
+        gaussian_update_offset=50, gaussian_th=0.7, gaussian_extent=1.0,
+        gaussian_reset=2001, size_threshold=20, kf_interval=4,
+        window_size=10, pose_window=5, edge_threshold=4,
+        rgb_boundary_threshold=0.01, kf_translation=0.04,
+        kf_min_translation=0.02, kf_overlap=0.95, prune_mode="slam",
+        single_thread=True, spherical_harmonics=False, monocular=False,
+        lr=dict(cam_rot_delta=0.003, cam_trans_delta=0.001)),
+    "opt_params": dict(
+        iterations=30000, position_lr_init=0.00016,
+        position_lr_final=0.0000016, position_lr_delay_mult=0.01,
+        position_lr_max_steps=30000, feature_lr=0.0025, opacity_lr=0.05,
+        scaling_lr=0.001, rotation_lr=0.001, percent_dense=0.01,
+        lambda_dssim=0.2, densification_interval=100,
+        opacity_reset_interval=3000, densify_from_iter=500,
+        densify_until_iter=15000, densify_grad_threshold=0.0002),
+    "model_params": dict(sh_degree=0),
+}
+# Cuts of depth (iterations), not of width. init 1050 -> 100 keeps one
+# init densify (init_gaussian_update 100); 150 -> 20 iterations per
+# keyframe with the densify schedule unchanged puts one densify_and_prune
+# at iteration 200 (100 init + 21 per keyframe, its prune pass included);
+# the opacity resets (500, 2001) are not reached; color refinement 26000
+# -> MAP_REFINE_ITERS.
+MAP_CUTS = {"init_itr_num": 100, "mapping_itr_num": 20}
+MAP_REFINE_ITERS = 64
+# keyframes 1.. reach the backend this far off their true pose (the error
+# scale tracking leaves), in a seeded direction
+MAP_PERTURB_M, MAP_PERTURB_RAD = 1e-3, 1e-3
+# mapping-tile16 against mapping
+MAP_T16_PSNR_DB = 0.5
+MAP_T16_ACTIVE_REL = 0.02
+# Regression limits for both mapping paths, set from the first H100
+# reading (NVIDIA H100 80GB HBM3, 700.00 W; mapping / mapping-tile16):
+# keyframe PSNR mean 32.96 / 32.97 dB after mapping and 34.93 / 34.96 dB
+# after refinement; mean keyframe pose error 1.03 mm before mapping and
+# 1.84 / 1.95 mm after (the window's pose Adam restarts at every keyframe
+# and its first steps are lr-sized, 0.5 mm; the map is seeded from the
+# perturbed poses).
+MAP_PSNR_MAPPED_MIN_DB = 31.0
+MAP_PSNR_REFINED_MIN_DB = 33.0
+MAP_POSE_ERR_MAX_MM = 2.5
+
+
+FAILURES = []
 
 
 def fail(msg):
+    """Record a failed gate and go on, so that one call reports every
+    phase; the run exits non-zero, without its result lines, at the end
+    (check_failures)."""
     print(f"FAIL: {msg}", flush=True)
-    sys.exit(1)
+    FAILURES.append(msg)
+
+
+def check_failures():
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} gate(s) failed", flush=True)
+        sys.exit(1)
 
 
 def card_line():
@@ -199,13 +326,14 @@ def time_ms(fn, reps=7, warm=2):
     return float(np.median(times))
 
 
-def pose_list():
-    """bench.py's 5-pose trajectory (bench.py:168-175), ~6 mm + 4 mrad per
-    frame, composed in float32."""
+def pose_list(n=FRAMES):
+    """bench.py's trajectory (bench.py:168-175), ~6 mm + 4 mrad per frame,
+    composed in float32: its first ``n`` poses (the bench's 5 by
+    default)."""
     tau_step = np.array([0.0035, -0.0028, 0.0042, 0.002, 0.003, -0.0015],
                         np.float32)
     poses = [np.eye(4, dtype=np.float32)]
-    for k in range(1, FRAMES):
+    for k in range(1, n):
         step = torch.as_tensor(tau_step * np.float32(1.0 + 0.1 * np.sin(k)))
         poses.append(se3_exp(step).numpy() @ poses[-1])
     return poses
@@ -216,12 +344,26 @@ def pose_list():
 # ---------------------------------------------------------------------------
 
 def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                nt_weight=False):
+                nt_weight=False, tile16=False, time_plain=True):
+    """A forward kernel against its plain version on one plan: B1/B1'
+    (32x32), or under ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px
+    tile grid). Plain time unless not ``time_plain``."""
+    tile = 16 if tile16 else 32
+
+    def kernel():
+        if tile16:
+            return tk16.composite16(feat, ranges, n_tx // 2, n_ty // 2, w, h,
+                                    with_ntouch, nt_weight)
+        return tk.composite32(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
+                              nt_weight)
+
+    def plain():
+        return tk.plain_walk(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
+                             nt_weight, tile=tile)
+
     torch.cuda.synchronize()
-    (ref, walked) = tk.plain_walk(feat, ranges, n_tx, n_ty, w, h,
-                                  with_ntouch, nt_weight)
-    got = tk.composite32(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                         nt_weight)
+    (ref, walked) = plain()
+    got = kernel()
     torch.cuda.synchronize()
     errs = {
         "color": float((got.color_sum - ref.color_sum).abs().max()),
@@ -232,17 +374,15 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     live = int((ranges[:, 1] - ranges[:, 0]).sum())
     nt_bad = int((got.n_touched_pairs != ref.n_touched_pairs).sum())
     walked_pairs = int(walked.sum())
-    ms = time_ms(lambda: tk.composite32(feat, ranges, n_tx, n_ty, w, h,
-                                        with_ntouch, nt_weight))
-    plain_ms = time_ms(lambda: tk.plain_walk(feat, ranges, n_tx, n_ty, w, h,
-                                             with_ntouch, nt_weight),
-                       reps=5, warm=1)
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=5, warm=1) if time_plain else None
     n_bytes = (walked_pairs * 64 + ranges.numel() * 4 + 5 * h * w * 4
                + (walked_pairs * 4 if with_ntouch else 0))
-    n_ops = walked_pairs * tk.P * OPS_PER_CELL
+    n_ops = walked_pairs * tile * tile * OPS_PER_CELL
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    rec = dict(case=name, shape=f"{w}x{h}", with_ntouch=with_ntouch,
+    rec = dict(case=name, tile=tile, shape=f"{w}x{h}",
+               with_ntouch=with_ntouch,
                nt_weight=nt_weight, live_pairs=live,
                walked_pairs=walked_pairs, max_abs_err=errs,
                nt_mismatch=nt_bad, ms=ms, plain_ms=plain_ms,
@@ -258,12 +398,66 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     return rec
 
 
-def pair_rows(prep, w, h, cap, radius_scale=1.0, radius_pad=0.0):
+def kernel_grid(w, h, tile16=False):
+    """The tile grid a compositing kernel walks: 32-px tiles, or the
+    2*ceil(W/32) x 2*ceil(H/32) grid of 16-px tiles."""
+    if tile16:
+        n_gx, n_gy = tk16.grid_dims16(w, h)
+        return 2 * n_gx, 2 * n_gy
+    return tk.grid_dims(w, h)
+
+
+def pair_rows(prep, w, h, cap, radius_scale=1.0, radius_pad=0.0,
+              tile16=False, opa_growth=1.0):
     plan = make_plan(prep, w, h, cap, radius_scale=radius_scale,
-                     radius_pad=radius_pad)
+                     radius_pad=radius_pad, tile16=tile16,
+                     opa_growth=opa_growth)
     feat = pair_gather(pack_table(prep), plan).contiguous()
-    n_tx, n_ty = tk.grid_dims(w, h)
+    n_tx, n_ty = kernel_grid(w, h, tile16)
     return feat, plan.ranges.contiguous(), n_tx, n_ty, plan
+
+
+def resort_full_depth_key(plan, depth):
+    """``plan`` with each tile's pairs in full f32 depth order, ties in
+    emission order: the order an int64 [tile | 31 depth bits] sort key
+    gives. The reference's packed int32 key keeps 31 - bit_length(n_tiles)
+    depth bits (21 on the 32-px grid at 1200x680, 19 on the 16-px one) and
+    composites truncated-depth ties in emission order. A tile's pairs
+    already stand in (truncated depth, emission) order, so a stable sort
+    on (tile, full depth) gives (tile, depth, emission); counts and
+    ranges stay, pair_gid1 and aligned_of_em move together."""
+    gid1 = plan.pair_gid1
+    B_al = gid1.shape[0]
+    slot = torch.arange(B_al, device=gid1.device)
+    tile = torch.searchsorted(plan.ranges[:, 0].long().contiguous(), slot,
+                              right=True) - 1
+    bits = depth.contiguous().view(torch.int32).long()[
+        torch.clamp(gid1.long() - 1, min=0)]
+    key = (tile << 32) | torch.where(gid1 > 0, bits,
+                                     torch.full_like(bits, 1 << 31))
+    order = torch.sort(key, stable=True).indices
+    new_of_old = torch.empty_like(order)
+    new_of_old[order] = slot
+    aoe = plan.aligned_of_em
+    moved = new_of_old[torch.clamp(aoe.long(), max=B_al - 1)].to(torch.int32)
+    return plan._replace(pair_gid1=gid1[order],
+                         aligned_of_em=torch.where(aoe < B_al, moved, aoe))
+
+
+class full_depth_key_plans:
+    """Inside the block every plan the port builds (renderer_tiled's
+    make_plan, which render, the trackers and mapping call) is re-sorted
+    by resort_full_depth_key."""
+
+    def __enter__(self):
+        self.plan_pairs = inner = renderer_tiled.plan_pairs
+
+        def plan_pairs(prep, *args, **kw):
+            return resort_full_depth_key(inner(prep, *args, **kw), prep.depth)
+        renderer_tiled.plan_pairs = plan_pairs
+
+    def __exit__(self, *exc):
+        renderer_tiled.plan_pairs = self.plan_pairs
 
 
 def phase_kernels(dev, gm, cam):
@@ -331,33 +525,60 @@ def loss_cotangent(planes, target):
     return torch.autograd.grad(L, (cs, ds, ft))
 
 
+def mapping_cotangent(planes, target):
+    """The cotangent loss_mapping_rgbd hands the compositing against a
+    keyframe, at zero background and exposure."""
+    gt_img, gt_depth = target[0], target[1]
+    cs, ds, ft = [p.detach().clone().requires_grad_() for p in planes]
+    zero = torch.zeros((), device=cs.device)
+    image = losses.apply_exposure(cs, zero, zero)
+    L = losses.loss_mapping_rgbd(image, ds[None], gt_img, gt_depth, 0.01,
+                                 0.95)
+    grads = torch.autograd.grad(L, (cs, ds, ft), allow_unused=True)
+    # T reaches this loss only through the background, which is zero
+    return tuple(torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, (cs, ds, ft)))
+
+
 def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
-            target, seed, time_plain=True):
-    """B2 against its plain version on one plan under the loss cotangent
-    and a seeded one: per-column error, dL/dtau through both routes, and
-    kernel / bound times, and the plain version's unless not
+            target, seed, time_plain=True, tile16=False, opa_growth=1.0,
+            cot_fn=loss_cotangent):
+    """The backward kernel against its plain version on one plan (B2, or
+    under ``tile16`` B4 on a 16-px plan) under ``cot_fn``'s loss
+    cotangent and a seeded one: per-column error, dL/dtau through both
+    routes, and kernel / bound times, and the plain version's unless not
     ``time_plain``."""
     tau = torch.zeros(6, device=dev, requires_grad=True)
     prep = prep_fn(tau)
     plan = make_plan(prep, w, h, cap, radius_scale=radius_scale,
-                     radius_pad=radius_pad)
+                     radius_pad=radius_pad, tile16=tile16,
+                     opa_growth=opa_growth)
     feat = pair_gather(pack_table(prep), plan)
     feat_c, ranges = feat.detach().contiguous(), plan.ranges.contiguous()
-    n_tx, n_ty = tk.grid_dims(w, h)
+    n_tx, n_ty = kernel_grid(w, h, tile16)
+    tile = 16 if tile16 else 32
+    if tile16:
+        def kernel(*a):
+            return tk16.composite16_bwd(*a[:8], n_tx // 2, n_ty // 2, w, h)
+    else:
+        def kernel(*a):
+            return tk.composite32_bwd(*a)
     with torch.no_grad():
-        fwd = tk.composite32_fwd(feat_c, ranges, n_tx, n_ty, w, h)
+        fwd = (tk16.composite16_fwd(feat_c, ranges, n_tx // 2, n_ty // 2, w,
+                                    h) if tile16
+               else tk.composite32_fwd(feat_c, ranges, n_tx, n_ty, w, h))
     planes = (fwd.color_sum, fwd.depth_sum, fwd.final_T)
     gen = torch.Generator(device=dev).manual_seed(seed)
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
-    cots = {"loss": loss_cotangent(planes, target),
+    cots = {"loss": cot_fn(planes, target),
             "seeded": (seeded[0:3], seeded[3], seeded[4])}
     recs = []
     for kind, cot in cots.items():
         args = (feat_c, ranges, *planes, *cot, n_tx, n_ty, w, h)
         torch.cuda.synchronize()
         with torch.no_grad():
-            got = tk.composite32_bwd(*args)
-            ref, walked, included = tk.plain_bwd_walk(*args)
+            got = kernel(*args)
+            ref, walked, included = tk.plain_bwd_walk(*args, tile=tile)
         torch.cuda.synchronize()
         col_rel = []
         for c in range(tk.N_ROWS):
@@ -369,21 +590,22 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         dtau_rel = float((dtau_k - dtau_p).abs().max()
                          / dtau_p.abs().max())
         with torch.no_grad():
-            ms = time_ms(lambda: tk.composite32_bwd(*args))
-            plain_ms = (time_ms(lambda: tk.plain_bwd_walk(*args), reps=7,
-                                warm=1) if time_plain else None)
+            ms = time_ms(lambda: kernel(*args))
+            plain_ms = (time_ms(lambda: tk.plain_bwd_walk(*args, tile=tile),
+                                reps=7, warm=1) if time_plain else None)
         walked_pairs = int(walked.sum())
         included_cells = int(included)
         n_bytes = (walked_pairs * 64 + feat_c.shape[0] * 64
                    + ranges.numel() * 4 + 10 * h * w * 4)
-        n_ops = (walked_pairs * tk.P * OPS_PER_WALKED_CELL_BWD
+        n_ops = (walked_pairs * tile * tile * OPS_PER_WALKED_CELL_BWD
                  + included_cells * OPS_PER_INCLUDED_CELL_BWD)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / FP32_OPS_PER_S * 1e3
         rec = dict(
-            case=name, cotangent=kind, shape=f"{w}x{h}",
+            case=name, tile=tile, cotangent=kind, shape=f"{w}x{h}",
             B_al=int(feat_c.shape[0]), live_pairs=int(plan.num_pairs),
-            walked_pairs=walked_pairs, walked_cells=walked_pairs * tk.P,
+            walked_pairs=walked_pairs,
+            walked_cells=walked_pairs * tile * tile,
             included_cells=included_cells, overflow=int(plan.overflow),
             max_abs_err=float((got - ref).abs().max()),
             max_col_rel_err=max(col_rel), col_rel_err=col_rel,
@@ -393,17 +615,18 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             dtau_rel_err=dtau_rel, ms=ms, plain_ms=plain_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes > t_ops else "operations")
-        print("b2-vs-plain " + json.dumps(rec), flush=True)
+        label = "B4" if tile16 else "B2"
+        print(f"{label.lower()}-vs-plain " + json.dumps(rec), flush=True)
         if not bool(torch.isfinite(got).all()):
-            fail(f"B2 {name}/{kind}: non-finite rows")
+            fail(f"{label} {name}/{kind}: non-finite rows")
         if got[:, tk.N_ROWS:].any() or not rec["zero_rows_equal"]:
-            fail(f"B2 {name}/{kind}: rows that must be zero are not")
+            fail(f"{label} {name}/{kind}: rows that must be zero are not")
         if max(col_rel) > BWD_COL_TOL:
-            fail(f"B2 {name}/{kind}: a column differs from plain by "
+            fail(f"{label} {name}/{kind}: a column differs from plain by "
                  f"{max(col_rel):.3e} of its max (limit {BWD_COL_TOL})")
         if dtau_rel > BWD_DTAU_TOL:
-            fail(f"B2 {name}/{kind}: dL/dtau differs by {dtau_rel:.3e} "
-                 f"relative (limit {BWD_DTAU_TOL})")
+            fail(f"{label} {name}/{kind}: dL/dtau differs by "
+                 f"{dtau_rel:.3e} relative (limit {BWD_DTAU_TOL})")
         recs.append(rec)
     return recs
 
@@ -496,6 +719,102 @@ def phase_lab(dev):
     return rec
 
 
+def phase_kernels16(dev, gm, cam, gt1):
+    """B3', B3 and B4 against their plain versions on the room map at the
+    first frame's pose, at the shapes the paths give them: 16-px plans at
+    s=4/2/1 as the tracker builds them (beside B1' on the same levels in
+    phase_kernels), a fresh 16-px plan at s=1 (window visibility and color
+    refinement renders) and the mapping plan at s=1 (radius_scale 1.1, pad
+    6, opa_growth 2.23: every mapping iteration). B4 runs on the mapping
+    plan under the mapping loss's cotangent against ``gt1`` and a seeded
+    one."""
+    recs = []
+    for s in (4, 2, 1):
+        cam_l = tracking._cam_level(cam, s)
+        lp = (0.3 + (s * s - 1) / 12.0) / (s * s) if s > 1 else 0.3
+        prep = gmath.preprocess(
+            gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
+            cam_l.w2c(), cam_l.projection(), torch.zeros(6, device=dev),
+            cam_l.fx, cam_l.fy, cam_l.width, cam_l.height, cam_l.tanfovx,
+            cam_l.tanfovy, low_pass=lp)
+        cap = PAIR_CAP if s == 1 else PAIR_CAP // 2
+        feat, ranges, n_tx, n_ty, plan = pair_rows(
+            prep, cam_l.width, cam_l.height, cap, 1.1, max(2.0, 4.0 / s),
+            tile16=True)
+        recs.append(kernel_case(f"room_s{s}", feat, ranges, n_tx, n_ty,
+                                cam_l.width, cam_l.height, False,
+                                tile16=True, time_plain=False))
+    prep = level_prep_fn(dev, gm, cam, 0.3)(torch.zeros(6, device=dev))
+    for case, kw, forms in (
+            ("room_s1_fresh16", {}, [(True, False, True),
+                                     (False, False, False)]),
+            ("room_s1_map16", dict(radius_scale=1.1, radius_pad=6.0,
+                                   opa_growth=2.23),
+             [(False, False, True), (True, False, False),
+              (True, True, False)])):
+        feat, ranges, n_tx, n_ty, plan = pair_rows(prep, W, H, PAIR_CAP,
+                                                   tile16=True, **kw)
+        print(f"{case}: {int(plan.num_pairs)} pairs, overflow "
+              f"{int(plan.overflow)}", flush=True)
+        for with_nt, nt_w, timed in forms:
+            recs.append(kernel_case(case, feat, ranges, n_tx, n_ty, W, H,
+                                    with_nt, nt_w, tile16=True,
+                                    time_plain=timed))
+    b4 = b2_case("room_s1_map16", dev, level_prep_fn(dev, gm, cam, 0.3), W,
+                 H, PAIR_CAP, 1.1, 6.0, gt1, seed=6, tile16=True,
+                 opa_growth=2.23, cot_fn=mapping_cotangent)
+    return recs, b4
+
+
+def render16_vs_32(dev, gm, cam):
+    """render(tile16=True) against render(tile16=False) on the room map at
+    the first frame's pose, on fresh plans: with the reference's packed
+    int32 sort key (reported: the 16-px grid keeps 2 fewer depth bits, so
+    depth ties composite in emission order), and re-sorted on the full
+    depth key (gated: every pixel within T16_FULL_KEY_TOL, n_touched
+    equal)."""
+    bg = torch.zeros(3, device=dev)
+    prep = level_prep_fn(dev, gm, cam, 0.3)(torch.zeros(6, device=dev))
+    rec = dict(card=card_line())
+    for key in ("packed_key", "full_key"):
+        outs = []
+        for t16 in (False, True):
+            plan = make_plan(prep, W, H, PAIR_CAP, active=gm.active,
+                             tile16=t16)
+            if key == "full_key":
+                plan = resort_full_depth_key(plan, prep.depth)
+            outs.append(render(gm, cam, None, bg, plan=plan, tile16=t16,
+                               device=dev))
+        torch.cuda.synchronize()
+        r = {}
+        for name in ("color", "depth", "opacity"):
+            diff = (getattr(outs[0], name) - getattr(outs[1], name)).abs()
+            diff = diff.amax(dim=0)
+            r[name] = dict(max=float(diff.max()),
+                           frac_over_1e5=float((diff > 1e-5).float().mean()))
+        nt32, nt16 = (o.n_touched.double() for o in outs)
+        r.update(nt_gaussians_differing=int((nt32 != nt16).sum()),
+                 nt_gaussians_touched=int((nt32 > 0).sum()),
+                 nt_total_rel=float((nt32 - nt16).abs().sum() / nt32.sum()),
+                 overflow=[int(o.overflow) for o in outs],
+                 finite=all(bool(torch.isfinite(o.color).all())
+                            for o in outs))
+        rec[key] = r
+    print("render-tile16-vs-tile32 " + json.dumps(rec), flush=True)
+    full = rec["full_key"]
+    worst = max(full[n]["max"] for n in ("color", "depth", "opacity"))
+    if not all(rec[k]["finite"] for k in ("packed_key", "full_key")):
+        fail("render tile16 vs tile32: non-finite render")
+    if any(rec[k]["overflow"] != [0, 0] for k in ("packed_key", "full_key")):
+        fail("render tile16 vs tile32: plan overflow")
+    if worst > T16_FULL_KEY_TOL or full["nt_gaussians_differing"]:
+        fail(f"render tile16 vs tile32 with the full depth key: max "
+             f"|difference| {worst:.3e} (limit {T16_FULL_KEY_TOL}), "
+             f"{full['nt_gaussians_differing']} Gaussians differ in "
+             "n_touched")
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -540,13 +859,14 @@ EXACT_KW = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
                 probe_levels="coarse", plan_pad=8.0, final_level=1)
 
 
-def render_ground_truth(dev, gm, cam, poses):
+def render_ground_truth(dev, gm, cam, poses, tile16=False):
     bg = torch.zeros(3, device=dev)
     gts, overflow = [], 0
     for Tp in poses:
         c = cam.replace(R=torch.as_tensor(Tp[:3, :3], device=dev),
                         t=torch.as_tensor(Tp[:3, 3], device=dev))
-        out = render(gm, c, None, bg, pair_capacity=PAIR_CAP, device=dev)
+        out = render(gm, c, None, bg, pair_capacity=PAIR_CAP, tile16=tile16,
+                     device=dev)
         img = torch.clamp(out.color, 0, 1)
         mask = losses.compute_grad_mask(img.mean(dim=0, keepdim=True),
                                         edge_threshold=1.1,
@@ -678,63 +998,55 @@ def run_schedule(name, dev, gm, cam, gts, poses, kw, gt_overflow,
 def phase_profile(dev, gm, cam, gts, poses, name="profile", kw=BENCH_KW,
                   **track_kw):
     """Where a tracked frame's time goes: host syncs per frame (CUDA sync
-    debug mode), then one torch.profiler pass for device busy time, kernel
-    launches and the top kernels by device time (table in
-    chiprun_out/track_<name>.txt)."""
-    import warnings
-    from torch.profiler import ProfilerActivity, profile
+    debug mode), then one torch.profiler pass (profile_call) for device
+    busy time (kernels, copies and fills; the kernels' and the
+    compositing kernels' share beside it), device launches and the top
+    kernels by device time (table in chiprun_out/track_<name>.txt)."""
+    syncs = count_syncs(lambda: track_sequence(
+        dev, gm, cam, gts, poses, kw, collect=False, **track_kw))
+    prof = profile_call(lambda: track_sequence(
+        dev, gm, cam, gts, poses, kw, collect=False, **track_kw),
+        f"track_{name}")
+    frames = FRAMES - 1
+    busy_ms, wall_ms = prof["device_busy_ms"], prof["wall_ms"]
+    rec = dict(
+        frames=frames, wall_ms_per_frame=wall_ms / frames,
+        device_busy_ms_per_frame=busy_ms / frames,
+        device_kernel_ms_per_frame=prof["device_kernel_ms"] / frames,
+        composite_ms_per_frame=prof["composite_fwd_ms"] / frames,
+        composite_bwd_ms_per_frame=prof["composite_bwd_ms"] / frames,
+        device_idle_share=prof["device_idle_share"],
+        kernel_launches_per_frame=prof["kernel_launches"] / frames,
+        host_syncs_per_frame=syncs / frames,
+        top=[dict(name=t["name"], ms_per_frame=t["ms"] / frames,
+                  calls=t["calls"]) for t in prof["top"]],
+        card=card_line())
+    print(f"{name} " + json.dumps(rec), flush=True)
+    return rec
 
+
+def count_syncs(fn):
+    """Host syncs ``fn`` makes (CUDA sync debug mode warnings)."""
+    import warnings
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            track_sequence(dev, gm, cam, gts, poses, kw, collect=False,
-                           **track_kw)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        track_sequence(dev, gm, cam, gts, poses, kw, collect=False,
-                       **track_kw)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            kern.append((e.key, float(dev_us) / 1e3, int(e.count)))
-    kern.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in kern)
-    comp_ms = sum(r[1] for r in kern if "composite32_fwd" in r[0])
-    bwd_ms = sum(r[1] for r in kern if "composite32_bwd" in r[0])
-    frames = FRAMES - 1
-    rec = dict(
-        frames=frames, wall_ms_per_frame=wall_ms / frames,
-        device_busy_ms_per_frame=busy_ms / frames,
-        device_idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
-        kernel_launches_per_frame=sum(r[2] for r in kern) / frames,
-        composite_ms_per_frame=comp_ms / frames,
-        composite_bwd_ms_per_frame=bwd_ms / frames,
-        host_syncs_per_frame=syncs / frames,
-        top=[dict(name=n[:80], ms_per_frame=t / frames, calls=c)
-             for n, t, c in kern[:10]], card=card_line())
-    print(f"{name} " + json.dumps(rec), flush=True)
-    out_dir = os.path.join(ROOT, "chiprun_out")
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, f"track_{name}.txt"), "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                          row_limit=40))
-    return rec
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 WRAPPERS = {"composite32_fwd": tk.composite32_fwd,
             "composite32_fwd_ntouch": tk.composite32_fwd_ntouch,
-            "composite32_bwd": tk.composite32_bwd}
+            "composite32_bwd": tk.composite32_bwd,
+            "composite16_fwd": tk16.composite16_fwd,
+            "composite16_fwd_ntouch": tk16.composite16_fwd_ntouch,
+            "composite16_bwd": tk16.composite16_bwd}
+KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
+KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 
 
 def reset_counts():
@@ -742,15 +1054,30 @@ def reset_counts():
         fn.launches = 0
 
 
-def read_counts(path, required):
+def read_counts(path, required, forbidden=()):
     """The launch counts since reset_counts(); fails unless every kernel
-    in ``required`` was launched on ``path``."""
+    in ``required`` was launched on ``path`` and none in ``forbidden``."""
     counts = {name: fn.launches for name, fn in WRAPPERS.items()}
     print(f"{path} launches: {json.dumps(counts)}", flush=True)
     for name in required:
         if counts[name] == 0:
             fail(f"kernel {name} was never launched on the path {path}")
+    for name in forbidden:
+        if counts[name]:
+            fail(f"kernel {name} was launched on the path {path}")
     return counts
+
+
+class uncounted:
+    """Launches inside the block (evaluation renders) leave the counts as
+    they were."""
+
+    def __enter__(self):
+        self.saved = {n: fn.launches for n, fn in WRAPPERS.items()}
+
+    def __exit__(self, *exc):
+        for n, fn in WRAPPERS.items():
+            fn.launches = self.saved[n]
 
 
 def check_path(name, rec, max_err_m=1e-3):
@@ -805,6 +1132,304 @@ def run_frame1(name, fn, max_iters, max_err_m, dev, gm, cam, gts, poses):
     return rec
 
 
+def main_path_full_key(dev, gm, cam, poses, main_rec):
+    """The main path's schedule at both tile sizes with every plan
+    re-sorted on the full depth key (full_depth_key_plans), frames
+    rendered so too: the two tile sizes then composite each pixel's pairs
+    in the same order, so the 16x16 tracker must land where the 32x32 one
+    does (within TILE16_FULL_KEY_REL) and both under 1 mm. Set beside the
+    main path's error, this shows how far the packed keys' depth ties
+    move each tile size. Outside the launch counts."""
+    with uncounted(), full_depth_key_plans():
+        gts_fk, gt_overflow = render_ground_truth(dev, gm, cam, poses)
+        runs = {t16: track_sequence(dev, gm, cam, gts_fk, poses,
+                                    dict(BENCH_KW, tile16=t16), collect=True)
+                for t16 in (False, True)}
+    rec = {}
+    for t16, st in runs.items():
+        rec["tile16" if t16 else "tile32"] = dict(
+            pose_err_mean_m=float(np.mean(st["errs"])),
+            pose_err_max_m=float(np.max(st["errs"])),
+            pose_errs_m=st["errs"], iters_per_frame=st["iters"] / (FRAMES - 1),
+            overflow=max(st["overflow"], gt_overflow), finite=st["finite"])
+    e16, e32 = (rec[k]["pose_err_mean_m"] for k in ("tile16", "tile32"))
+    e_main = main_rec["pose_err_mean_m"]
+    rec.update(main_path_err_mean_m=e_main,
+               tile16_rel_to_tile32=e16 / e32 - 1.0,
+               tile16_rel_to_main_path=e16 / e_main - 1.0,
+               card=card_line())
+    print("main-path-full-depth-key " + json.dumps(rec), flush=True)
+    for k in ("tile16", "tile32"):
+        check_path(f"main-path-full-depth-key {k}", rec[k])
+    if abs(rec["tile16_rel_to_tile32"]) > TILE16_FULL_KEY_REL:
+        fail(f"main-path-full-depth-key: tile16 error {e16:.6f} m is "
+             f"{rec['tile16_rel_to_tile32']:+.1%} from tile32's {e32:.6f} m")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the mapping paths
+# ---------------------------------------------------------------------------
+
+def mapping_config(tile16):
+    cfg = {k: dict(v) if isinstance(v, dict) else v
+           for k, v in MAP_CONFIG.items()}
+    cfg["Training"].update(MAP_CUTS, tile16=tile16)
+    return cfg
+
+
+def perturbed(T, rng):
+    """T with a seeded left perturbation of MAP_PERTURB_M translation and
+    MAP_PERTURB_RAD rotation."""
+    rho, theta = rng.normal(size=3), rng.normal(size=3)
+    tau = np.concatenate([rho / np.linalg.norm(rho) * MAP_PERTURB_M,
+                          theta / np.linalg.norm(theta) * MAP_PERTURB_RAD])
+    return se3_exp(torch.as_tensor(tau, dtype=torch.float32)).numpy() @ T
+
+
+@torch.no_grad()
+def keyframe_eval(be, kf_gts, kf_poses, uids):
+    """Per keyframe of ``uids``: PSNR of the render at the backend's pose
+    (clamped, no exposure, as the reference evaluates), the window's
+    mapping loss there (with the stored exposures), and the translation
+    error of the stored pose, in mm."""
+    psnrs, loss, errs = [], 0.0, []
+    for u in uids:
+        s = be.uid_to_slot[u]
+        cam = be.cam.replace(R=be.store.R[s], t=be.store.t[s])
+        out = render(be.gm, cam, None, be.bg, pair_capacity=be.pair_capacity,
+                     tile16=be.tile16, need_n_touched=False, device=be.device)
+        img, dep = kf_gts[u][0], kf_gts[u][1]
+        psnrs.append(float(losses.psnr(torch.clamp(out.color, 0, 1), img)))
+        loss += float(losses.loss_mapping_rgbd(
+            losses.apply_exposure(out.color, be.store.exposure_a[s],
+                                  be.store.exposure_b[s]),
+            out.depth, img, dep, be.rgb_boundary_threshold, be.alpha))
+        errs.append(1e3 * float(torch.linalg.norm(
+            be.store.t[s].cpu() - torch.as_tensor(kf_poses[u][:3, 3]))))
+    return psnrs, loss, errs
+
+
+def window_overflow(be, uids):
+    """The largest overflow of the window's mapping plans (the plans
+    mapping_steps builds) at the backend's current state."""
+    worst = 0
+    for u in uids:
+        s = be.uid_to_slot[u]
+        plan = make_render_plan(
+            be.gm, be.cam.replace(R=be.store.R[s], t=be.store.t[s]),
+            pair_capacity=be.pair_capacity,
+            radius_scale=mapping.PLAN_RADIUS_SCALE,
+            radius_pad=mapping.PLAN_RADIUS_PAD, tile16=be.tile16,
+            opa_growth=mapping.PLAN_OPA_GROWTH, device=be.device)
+        worst = max(worst, int(plan.overflow))
+    return worst
+
+
+def profile_call(fn, name):
+    """Run ``fn`` once under torch.profiler, device activity only: wall,
+    device busy time (kernels, copies and fills) and of it the kernels'
+    time and the compositing kernels' (forward and backward, both tile
+    sizes), idle share, device launches and the top kernels (table of 40
+    in chiprun_out/<name>.txt). The device events are read from the trace
+    the profiler exports, not from key_averages(), whose per-event Python
+    processing took ~100 s for a mapping keyframe's ~10^5 launches."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    trace = os.path.join(ROOT, "build", f"trace_{name}.json")
+    os.makedirs(os.path.dirname(trace), exist_ok=True)
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    os.remove(trace)
+    agg, kernel_ms = {}, 0.0
+    for e in events:
+        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            ms, n = agg.get(e["name"], (0.0, 0))
+            dur = float(e.get("dur", 0.0)) / 1e3
+            agg[e["name"]] = (ms + dur, n + 1)
+            kernel_ms += dur if e["cat"] == "kernel" else 0.0
+    kern = sorted(((k, ms, n) for k, (ms, n) in agg.items()),
+                  key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in kern)
+    comp_ms = {part: sum(r[1] for r in kern if f"{part}_kernel" in r[0])
+               for part in ("composite32_fwd", "composite32_bwd",
+                            "composite16_fwd", "composite16_bwd")}
+    out_dir = os.path.join(ROOT, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{name}.txt"), "w") as f:
+        f.write(f"{'device ms':>12} {'calls':>8}  name\n")
+        for k, ms, n in kern[:40]:
+            f.write(f"{ms:12.3f} {n:8d}  {k}\n")
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_kernel_ms=kernel_ms,
+                composite_fwd_ms=(comp_ms["composite32_fwd"]
+                                  + comp_ms["composite16_fwd"]),
+                composite_bwd_ms=(comp_ms["composite32_bwd"]
+                                  + comp_ms["composite16_bwd"]),
+                device_idle_share=1.0 - busy_ms / wall_ms,
+                kernel_launches=sum(r[2] for r in kern),
+                processing_s=time.perf_counter() - t1,
+                top=[dict(name=n[:80], ms=t, calls=c)
+                     for n, t, c in kern[:10]])
+
+
+def time_map_calls(be):
+    """Wrap ``be.map`` so that each call's device-synchronized wall is
+    appended to the returned list as (prune, seconds): handle_keyframe
+    makes one call to map the window and one prune pass."""
+    walls, inner = [], be.map
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        torch.cuda.synchronize()
+        walls.append((kw.get("prune", False), time.perf_counter() - t0))
+        return out
+    be.map = timed
+    return walls
+
+
+def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
+    """The backend over the MAP_KF keyframes, as the frontend would feed
+    it: keyframe 0 at its true pose (initialize_map), keyframes 1.. with a
+    seeded perturbation, each followed by handle_keyframe over the window
+    (newest first), then color refinement. One keyframe runs under CUDA
+    sync debug mode (host syncs per iteration) and one under
+    torch.profiler; both are left out of the wall statistics."""
+    cfg = mapping_config(tile16)
+    be = BackEnd(cfg, cam, device=dev)
+    be.prewarm_mapping()
+    rng = np.random.default_rng(7)
+    starts = [kf_poses[0]] + [perturbed(T, rng) for T in kf_poses[1:]]
+    gt0 = kf_gts[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be.add_next_kf(0, starts[0][:3, :3], starts[0][:3, 3], 0.0, 0.0, gt0[0],
+                   gt0[1], gt0[1][0], init=True)
+    be.initialize_map(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    active = {"init": int(be.gm.num_active())}
+    map_walls = time_map_calls(be)
+    window, per_kf, seed_s = [0], [], []
+    sync_kf, prof_kf = 3, 4
+    overflow = window_overflow(be, window)
+    prof = syncs_per_iter = None
+    for k in range(1, MAP_KF):
+        gk = kf_gts[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        be.add_next_kf(k, starts[k][:3, :3], starts[k][:3, 3], 0.0, 0.0,
+                       gk[0], gk[1], gk[1][0])
+        torch.cuda.synchronize()
+        seed_s.append(time.perf_counter() - t0)
+        window = ([k] + window)[:be.window_size]
+        with uncounted():
+            psnr_b, loss_b, _ = keyframe_eval(be, kf_gts, kf_poses, window)
+        it0 = be.iteration_count
+        map_walls.clear()
+        if k == sync_kf:
+            syncs_per_iter = (count_syncs(lambda: be.handle_keyframe(k, window))
+                              / (be.iteration_count - it0))
+        elif k == prof_kf:
+            prof = profile_call(lambda: be.handle_keyframe(k, window),
+                                f"map_{name}")
+            prof["iterations"] = be.iteration_count - it0
+        else:
+            be.handle_keyframe(k, window)
+        with uncounted():
+            psnr_a, loss_a, _ = keyframe_eval(be, kf_gts, kf_poses, window)
+            overflow = max(overflow, window_overflow(be, window))
+        active[f"kf{k}"] = int(be.gm.num_active())
+        per_kf.append(dict(kf=k, window=len(window),
+                           iters=be.iteration_count - it0,
+                           map_s=sum(w for p, w in map_walls if not p),
+                           prune_s=sum(w for p, w in map_walls if p),
+                           loss_before=loss_b, loss_after=loss_a,
+                           psnr_mean_before=float(np.mean(psnr_b)),
+                           psnr_mean_after=float(np.mean(psnr_a)),
+                           instrumented=k in (sync_kf, prof_kf)))
+    uids = list(range(MAP_KF))
+    with uncounted():
+        psnr_map, _, err_map = keyframe_eval(be, kf_gts, kf_poses, uids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    be.color_refinement(iteration_total=MAP_REFINE_ITERS)
+    torch.cuda.synchronize()
+    refine_s = time.perf_counter() - t0
+    active["refined"] = int(be.gm.num_active())
+    with uncounted():
+        psnr_ref, _, _ = keyframe_eval(be, kf_gts, kf_poses, uids)
+    err_before = [1e3 * float(np.linalg.norm(starts[k][:3, 3]
+                                             - kf_poses[k][:3, 3]))
+                  for k in range(1, MAP_KF)]
+    plain = [r for r in per_kf if not r["instrumented"]]
+    kf_walls = [r["map_s"] for r in plain]
+    prune_walls = [r["prune_s"] for r in plain]
+    map_iters = sum(r["iters"] - 1 for r in plain)
+    act = be.gm.active
+    finite = all(bool(torch.isfinite(getattr(be.gm, f)[act]).all())
+                 for f in ("xyz", "scaling", "rotation", "opacity",
+                           "features_dc"))
+    finite &= bool(torch.isfinite(be.store.R).all()
+                   and torch.isfinite(be.store.t).all())
+    rec = dict(
+        path=name, tile16=tile16, keyframes=MAP_KF, resolution=f"{W}x{H}",
+        cuts=dict(MAP_CUTS, color_refinement=MAP_REFINE_ITERS),
+        init_s=init_s, init_iters=cfg["Training"]["init_itr_num"],
+        seed_s_median=float(np.median(seed_s)),
+        kf_map_s_median=float(np.median(kf_walls)),
+        kf_map_s_max=float(np.max(kf_walls)),
+        kf_prune_s_median=float(np.median(prune_walls)),
+        kf_prune_s_max=float(np.max(prune_walls)),
+        map_iters_per_s=map_iters / float(np.sum(kf_walls)),
+        refine_s=refine_s, refine_iters_per_s=MAP_REFINE_ITERS / refine_s,
+        iterations=be.iteration_count, active=active,
+        densify=[dict(iteration=d["iteration"], clone=int(d["clone"]),
+                      split=int(d["split"]), prune=int(d["prune"]),
+                      overflow=int(d["overflow"])) for d in be.densify_log],
+        overflow=overflow, capacity=be.gm.capacity,
+        plan_stats=be.plan_stats,
+        psnr_mapped_mean=float(np.mean(psnr_map)),
+        psnr_mapped_min=float(np.min(psnr_map)),
+        psnr_refined_mean=float(np.mean(psnr_ref)),
+        psnr_refined_min=float(np.min(psnr_ref)),
+        pose_err_before_mm=float(np.mean(err_before)),
+        pose_err_after_mm=float(np.mean(err_map[1:])),
+        pose_err_after_max_mm=float(np.max(err_map[1:])),
+        window_loss_first=per_kf[-1]["loss_before"],
+        window_loss_final=per_kf[-1]["loss_after"],
+        host_syncs_per_iter=syncs_per_iter, profile=prof,
+        finite=finite, per_keyframe=per_kf, card=card_line())
+    print(f"{name} " + json.dumps(rec), flush=True)
+    if not finite:
+        fail(f"{name}: non-finite map or poses")
+    if overflow or any(d["overflow"] for d in rec["densify"]):
+        fail(f"{name}: overflow (plans {overflow}, densify "
+             f"{[d['overflow'] for d in rec['densify']]})")
+    if not rec["window_loss_final"] < rec["window_loss_first"]:
+        fail(f"{name}: the final window loss {rec['window_loss_final']:.6f}"
+             f" is not below the first {rec['window_loss_first']:.6f}")
+    if (rec["psnr_mapped_mean"] < MAP_PSNR_MAPPED_MIN_DB
+            or rec["psnr_refined_mean"] < MAP_PSNR_REFINED_MIN_DB):
+        fail(f"{name}: keyframe PSNR {rec['psnr_mapped_mean']:.3f} dB "
+             f"mapped, {rec['psnr_refined_mean']:.3f} dB refined (limits "
+             f"{MAP_PSNR_MAPPED_MIN_DB}, {MAP_PSNR_REFINED_MIN_DB})")
+    if rec["pose_err_after_mm"] > MAP_POSE_ERR_MAX_MM:
+        fail(f"{name}: mean keyframe pose error "
+             f"{rec['pose_err_after_mm']:.4f} mm after mapping (limit "
+             f"{MAP_POSE_ERR_MAX_MM} mm)")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -839,14 +1464,17 @@ def run(dev):
 
     gm = gmap.from_numpy(**make_room_map(N_ROOM, np.random.default_rng(0)),
                          max_sh_degree=0, device=dev)
-    cam = Camera.create(np.eye(3), np.zeros(3), FX, FY, 599.5, 339.5, W, H,
-                        device=dev)
+    cam = Camera.create(np.eye(3), np.zeros(3), FX, FY, (W - 1) / 2,
+                        (H - 1) / 2, W, H, device=dev)
 
     # phase 2: kernels vs plain versions (these launches are not counted)
     cases = phase_kernels(dev, gm, cam)
     poses = pose_list()
     b2_cases = phase_backward(dev, gm, cam, poses)
     phase_lab(dev)
+    gt1 = render_ground_truth(dev, gm, cam, poses[:2])[0][1]
+    cases16, b4_cases = phase_kernels16(dev, gm, cam, gt1)
+    render16_vs_32(dev, gm, cam)
 
     # phase 3: the main path, with launch counts from 0
     reset_counts()
@@ -879,8 +1507,34 @@ def run(dev):
              f"{r05['pose_err_mean_m']:.6f} m is {r05_rel:.1%} from the JAX "
              f"tracker's {R05_JAX_ERR_MEAN_M} m (limit {R05_ERR_REL:.0%})")
 
+    # the main path's schedule once more on the 16x16 kernels, tracking
+    # frames rendered on them: on this dense map the two tile sizes order
+    # depth-tied splats differently (render-tile16-vs-tile32 line), so the
+    # 32x32 frames are tracked once more only to report that mismatch
+    kw16 = dict(BENCH_KW, tile16=True)
+    with uncounted():
+        gts16, gt16_overflow = render_ground_truth(dev, gm, cam, poses,
+                                                   tile16=True)
+    reset_counts()
+    t16 = run_schedule("main-path-tile16", dev, gm, cam, gts16, poses, kw16,
+                       gt16_overflow, reps=TILE16_REPS)
+    launches["main-path-tile16"] = read_counts(
+        "main-path-tile16", ("composite16_fwd", "composite16_fwd_ntouch"),
+        forbidden=KERNELS32)
+    check_path("main-path-tile16", t16, max_err_m=TILE16_MAX_ERR_M)
+    with uncounted():
+        cross = track_sequence(dev, gm, cam, gts, poses, kw16, collect=True)
+    print("main-path-tile16-on-tile32-frames " + json.dumps(dict(
+        pose_err_mean_m=float(np.mean(cross["errs"])),
+        pose_err_max_m=float(np.max(cross["errs"])))), flush=True)
+    print(f"main-path-tile16: {t16['ms_per_frame']:.3f} ms/frame against "
+          f"the 32x32 main path's {rec['ms_per_frame']:.3f}; mean error "
+          f"{t16['pose_err_mean_m'] * 1e3:.4f} mm against "
+          f"{rec['pose_err_mean_m'] * 1e3:.4f}", flush=True)
+    main_path_full_key(dev, gm, cam, poses, rec)
+
     # phase 4: the exact-gradient paths, each with launch counts from 0
-    all_kernels = tuple(WRAPPERS)
+    all_kernels = KERNELS32
     reset_counts()
     pol = run_schedule("keyframe-polish", dev, gm, cam, gts, poses,
                        BENCH_KW, gt_overflow, polish=True)
@@ -922,11 +1576,39 @@ def run(dev):
         run_frame1(name, fn, iters, max_err, dev, gm, cam, gts, poses)
         launches[name] = read_counts(name, all_kernels)
 
-    # phase 5: the kernels line. Launches: summed over the paths' runs.
-    # Times: the forward kernels at the shape the main path runs most
-    # (the s=2 level: every fine IRLS render and the keyframing render),
-    # B2 at the polish_frame shape (s=1) under the loss cotangent.
+    # phase 5: the mapping paths, each with launch counts from 0
+    kf_poses = pose_list(1 + KF_STEP * (MAP_KF - 1))[::KF_STEP]
+    kf_gts, kf_overflow = render_ground_truth(dev, gm, cam, kf_poses)
+    if kf_overflow:
+        fail(f"keyframe ground truth: overflow {kf_overflow}")
+    maps = {}
+    for name, t16, req, forb in (("mapping", False, KERNELS32, KERNELS16),
+                                 ("mapping-tile16", True, KERNELS16,
+                                  KERNELS32)):
+        reset_counts()
+        maps[name] = run_mapping(name, dev, cam, kf_gts, kf_poses, t16)
+        launches[name] = read_counts(name, req, forbidden=forb)
+    a, b = maps["mapping"], maps["mapping-tile16"]
+    dpsnr = b["psnr_refined_mean"] - a["psnr_refined_mean"]
+    dact = b["active"]["refined"] / a["active"]["refined"] - 1.0
+    print(f"mapping-tile16 vs mapping: PSNR {dpsnr:+.4f} dB, active "
+          f"Gaussians {dact:+.4%}, keyframe map wall "
+          f"{b['kf_map_s_median']:.4f} s against {a['kf_map_s_median']:.4f}",
+          flush=True)
+    if abs(dpsnr) > MAP_T16_PSNR_DB or abs(dact) > MAP_T16_ACTIVE_REL:
+        fail(f"mapping-tile16 vs mapping: PSNR {dpsnr:+.3f} dB (limit "
+             f"{MAP_T16_PSNR_DB}), active {dact:+.2%} (limit "
+             f"{MAP_T16_ACTIVE_REL:.0%})")
+
+    # phase 6: the kernels line. Launches: summed over the paths' runs.
+    # Times: the 32x32 forward kernels at the shape the main path runs
+    # most (the s=2 level: every fine IRLS render and the keyframing
+    # render), B2 at the polish_frame shape (s=1) under the loss
+    # cotangent; the 16x16 kernels at the mapping shapes: B3' and B4 on
+    # the mapping plan (B4 under the mapping loss's cotangent), B3 on a
+    # fresh plan (window visibility).
     pallas = "gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py"
+    pallas16 = "gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel16.py"
     csrc = "gs_slam_analytica_jacobian_tpu_torch/csrc/"
     total = {n: sum(c[n] for c in launches.values()) for n in WRAPPERS}
 
@@ -954,7 +1636,27 @@ def run(dev):
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
         bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+    for name, case, with_nt, line in (
+            ("composite16_fwd", "room_s1_map16", False, 582),
+            ("composite16_fwd_ntouch", "room_s1_fresh16", True, 562)):
+        c = next(c for c in cases16 if c["case"] == case
+                 and c["with_ntouch"] == with_nt and not c["nt_weight"])
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "tile_kernel16_fwd.cu",
+            replaces=f"{pallas16}:{line}", launches=total[name],
+            max_abs_err=max(c["max_abs_err"].values()),
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+    c = next(c for c in b4_cases if c["cotangent"] == "loss")
+    kernels.append(dict(
+        name="composite16_bwd", route="cuda",
+        source=csrc + "tile_kernel16_bwd.cu", replaces=f"{pallas16}:622",
+        launches=total["composite16_bwd"], max_abs_err=c["max_abs_err"],
+        max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
+        plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+        bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
     print(f"launches by path: {json.dumps(launches)}", flush=True)
+    check_failures()
     print(json.dumps({"kernels": kernels}), flush=True)
 
 

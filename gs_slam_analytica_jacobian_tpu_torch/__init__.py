@@ -3,10 +3,11 @@
 A second package beside the JAX reference ``gs_slam_analytica_jacobian_tpu``,
 with the same layout (``ops``, ``models``, ``slam``) so that each module's
 counterpart is easy to find. It imports torch only, never jax and nothing
-of the JAX package. The one hand-written kernel of the tracking path (the
-32x32 forward compositing kernel, ``ops/tile_kernel2.py`` +
-``csrc/tile_kernel2_fwd.cu``) is CUDA C++ for Hopper (sm_90a), built with
-nvcc on first use; on CPU tensors its plain PyTorch version runs instead.
+of the JAX package. The compositing kernels (32x32 and 16x16, forward
+and backward: ``csrc/*.cu``, wrapped by ``ops/tile_kernel2.py`` and
+``ops/tile_kernel16.py``) are CUDA C++ for Hopper (sm_90a), built with
+nvcc on first use; on CPU tensors their plain PyTorch versions run
+instead.
 
 Entry points take ``device=None``, which means ``"cuda"``: without a GPU
 they raise unless the caller passes ``device="cpu"``.

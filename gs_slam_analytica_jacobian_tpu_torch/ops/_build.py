@@ -40,6 +40,11 @@ LIBRARIES = {
                           _INT, _VP]),
     "tile_kernel2_bwd": ("tile_kernel2_bwd.cu", "composite32_bwd",
                          [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]),
+    "tile_kernel16_fwd": ("tile_kernel16_fwd.cu", "composite16_fwd",
+                          [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                           _INT, _VP]),
+    "tile_kernel16_bwd": ("tile_kernel16_bwd.cu", "composite16_bwd",
+                          [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -10,7 +10,7 @@ the cull extents' ``q``, ``a`` and ``c``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -132,9 +132,14 @@ def preprocess(
     tau: torch.Tensor,
     fx: float, fy: float, width: int, height: int,
     tanfovx: float, tanfovy: float,
+    mean2d_offset: Optional[torch.Tensor] = None,
     low_pass: float = 0.3,
 ) -> Preprocessed:
-    """The rasterizer preprocess stage (forward.cu:157-401), vectorized."""
+    """The rasterizer preprocess stage (forward.cu:157-401), vectorized.
+
+    ``mean2d_offset`` is an all-zeros (N, 2) tensor whose gradient is the
+    screen-space mean gradient (pixel units) that densification
+    accumulates: the reference's ``screenspace_points`` trick."""
     dtype = means3d.dtype
     w2c_eff = se3_exp(tau.to(dtype)) @ w2c
 
@@ -154,6 +159,8 @@ def preprocess(
     mean2d = torch.stack(
         [((p_proj_x + 1.0) * width - 1.0) * 0.5,
          ((p_proj_y + 1.0) * height - 1.0) * 0.5], dim=-1)
+    if mean2d_offset is not None:
+        mean2d = mean2d + mean2d_offset
 
     a, b, c = compute_cov2d(p_view, cov6, R_cw, fx, fy, tanfovx, tanfovy,
                             low_pass)

@@ -1,5 +1,6 @@
-"""Tracking losses, Scharr gradient masks and median depth (torch port of
-the tracking part of ops/losses.py). Images are (C, H, W)."""
+"""Tracking and mapping losses, Scharr gradient masks, median depth and
+the L1 / PSNR / SSIM metrics (torch port of ops/losses.py). Images are
+(C, H, W)."""
 
 from __future__ import annotations
 
@@ -101,18 +102,92 @@ def loss_tracking_rgbd(image, depth, gt_image, gt_depth, opacity, grad_mask,
     return alpha * l1_rgb + (1 - alpha) * torch.mean(l1_depth)
 
 
+def masked_median(x: torch.Tensor, valid: torch.Tensor,
+                  empty: float = 0.0) -> torch.Tensor:
+    """Median of x[valid] (1-D) as jnp.median and jnp.nanmedian take it,
+    the mean of the two middle values of an even count, by an
+    +inf-padded sort (no host sync); ``empty`` when nothing is valid."""
+    n = torch.sum(valid)
+    s = torch.sort(torch.where(valid, x, torch.full_like(x, float("inf"))))
+    s = s.values
+    lo = torch.clamp((n - 1) // 2, min=0)
+    hi = torch.clamp(n // 2, min=0)
+    med = 0.5 * (s[lo] + s[hi])
+    return torch.where(n > 0, med, torch.full_like(med, empty))
+
+
 def median_depth(depth, opacity=None, mask=None):
-    """Median of valid rendered depth (+inf-padded sort)."""
+    """Median of valid rendered depth."""
     d = depth.reshape(-1)
     valid = d > 0
     if opacity is not None:
         valid = valid & (opacity.reshape(-1) > 0.95)
     if mask is not None:
         valid = valid & mask.reshape(-1)
-    n = torch.sum(valid)
-    s = torch.sort(torch.where(valid, d, torch.full_like(d, float("inf"))))
-    s = s.values
-    lo = torch.clamp((n - 1) // 2, min=0)
-    hi = torch.clamp(n // 2, min=0)
-    med = 0.5 * (s[lo] + s[hi])
-    return torch.where(n > 0, med, torch.zeros_like(med))
+    return masked_median(d, valid)
+
+
+def loss_mapping_rgb(image, gt_image, rgb_boundary_threshold: float):
+    rgb_mask = (torch.sum(gt_image, dim=0, keepdim=True)
+                > rgb_boundary_threshold).to(image.dtype)
+    return torch.mean(torch.abs(image * rgb_mask - gt_image * rgb_mask))
+
+
+def loss_mapping_rgbd(image, depth, gt_image, gt_depth,
+                      rgb_boundary_threshold: float, alpha: float = 0.95):
+    rgb_mask = (torch.sum(gt_image, dim=0, keepdim=True)
+                > rgb_boundary_threshold).to(image.dtype)
+    depth_mask = (gt_depth > 0.01).to(image.dtype)
+    l1_rgb = torch.abs(image * rgb_mask - gt_image * rgb_mask)
+    l1_depth = torch.abs(depth * depth_mask - gt_depth * depth_mask)
+    return alpha * torch.mean(l1_rgb) + (1 - alpha) * torch.mean(l1_depth)
+
+
+def isotropic_loss(log_scaling: torch.Tensor, active: torch.Tensor):
+    """|s - mean(s)| over active gaussians (the backend weighs it by 10).
+    log_scaling: (C, 3)."""
+    s = torch.exp(log_scaling)
+    dev = torch.abs(s - torch.mean(s, dim=1, keepdim=True))
+    w = active.to(s.dtype)[:, None]
+    denom = torch.clamp(torch.sum(w) * 3.0, min=1.0)
+    return torch.sum(dev * w) / denom
+
+
+# ---------------------------------------------------------------------------
+# Metrics: L1 / PSNR / SSIM
+# ---------------------------------------------------------------------------
+
+def l1_loss(a, b):
+    return torch.mean(torch.abs(a - b))
+
+
+def psnr(img1, img2):
+    mse = torch.mean((img1 - img2) ** 2)
+    return 20 * torch.log10(1.0 / torch.sqrt(mse))
+
+
+def _gaussian_window(size: int = 11, sigma: float = 1.5, device=None):
+    x = torch.arange(size, dtype=torch.float32, device=device) - size // 2
+    g = torch.exp(-(x ** 2) / (2 * sigma ** 2))
+    g = g / torch.sum(g)
+    return torch.outer(g, g)
+
+
+def ssim(img1: torch.Tensor, img2: torch.Tensor, size: int = 11):
+    """Window-11 SSIM with zero padding, as the reference computes it.
+    imgs: (C, H, W). (Full f32: the package turns cuDNN TF32 off.)"""
+    c = img1.shape[0]
+    k = _gaussian_window(size, device=img1.device).expand(c, 1, size, size)
+
+    def conv(x):
+        return F.conv2d(x[None], k, padding=size // 2, groups=c)[0]
+
+    mu1, mu2 = conv(img1), conv(img2)
+    mu1_sq, mu2_sq, mu12 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1 = conv(img1 * img1) - mu1_sq
+    sigma2 = conv(img2 * img2) - mu2_sq
+    sigma12 = conv(img1 * img2) - mu12
+    C1, C2 = 0.01 ** 2, 0.03 ** 2
+    s = ((2 * mu12 + C1) * (2 * sigma12 + C2)) / (
+        (mu1_sq + mu2_sq + C1) * (sigma1 + sigma2 + C2))
+    return torch.mean(s)

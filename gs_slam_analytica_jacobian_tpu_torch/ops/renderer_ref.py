@@ -147,17 +147,21 @@ def render(
     tanfovx: float, tanfovy: float,
     bg: torch.Tensor,
     active: Optional[torch.Tensor] = None,
+    mean2d_offset: Optional[torch.Tensor] = None,
     row_chunk: int = 16,
     device=None,
 ) -> RenderOutput:
     """Full oracle render (preprocess + composite), differentiable in every
-    Gaussian parameter and tau. ``device=None`` means CUDA (raises without
-    a GPU); every tensor argument must already lie on that device."""
+    Gaussian parameter, tau and ``mean2d_offset``. ``device=None`` means
+    CUDA (raises without a GPU); every tensor argument must already lie on
+    that device."""
     dev = resolve_device(device)
     require_on(dev, means3d=means3d, cov6=cov6, opacities=opacities,
-               shs=shs, w2c=w2c, proj=proj, tau=tau, bg=bg, active=active)
+               shs=shs, w2c=w2c, proj=proj, tau=tau, bg=bg, active=active,
+               mean2d_offset=mean2d_offset)
     prep = preprocess(means3d, cov6, opacities, shs, sh_degree, w2c, proj,
-                      tau, fx, fy, width, height, tanfovx, tanfovy)
+                      tau, fx, fy, width, height, tanfovx, tanfovy,
+                      mean2d_offset=mean2d_offset)
     if active is not None:
         prep = prep._replace(
             valid=prep.valid & active,

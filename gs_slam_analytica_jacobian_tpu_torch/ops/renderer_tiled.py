@@ -1,18 +1,21 @@
 """Tiled renderer (torch port of ops/renderer_tiled.py): preprocess ->
-pair plan -> packed gather -> 32x32 compositing kernel.
+pair plan -> packed gather -> 32x32 compositing kernel, or under
+``tile16`` a 16-px plan and the 16x16 kernels.
 
 ``render`` is differentiable in every Gaussian parameter and the pose
 delta tau: torch autograd supplies the preprocess backward, the gather's
 backward is the cumsum segment-reduce (ops/pair_gather.py) and the
-compositing's is the backward kernel (ops/tile_kernel2.py). The plan is
+compositing's is the backward kernel (ops/tile_kernel2.py,
+ops/tile_kernel16.py). The plan is
 non-differentiable structure, reusable across iterations (``plan=``).
 On CUDA tensors the compositing runs the hand-written kernels; on CPU
 tensors their plain PyTorch versions. ``ops/renderer_ref.py`` is the
 oracle it is tested against.
 
-Flags of the reference that are not ported yet — ``tile16`` (16x16
-kernels), ``bf16`` and ``mxu`` (kernel variants) — raise
-NotImplementedError instead of being ignored.
+Flags of the reference that are not ported yet — ``bf16`` and ``mxu``
+(kernel variants) — raise NotImplementedError instead of being ignored,
+and so does either of them beside ``tile16`` (the reference's tile16
+branch silently drops them).
 """
 
 from __future__ import annotations
@@ -27,15 +30,15 @@ from .gaussian_math import Preprocessed, preprocess
 from .pair_gather import pair_gather, segment_reduce_pairs
 from .renderer_ref import RenderOutput
 from .tile_kernel2 import TPX, TPY, K, composite32, grid_dims
+from .tile_kernel16 import TS, K16, composite16, grid_dims16
 
 
 def _not_ported(**flags):
     for name, on in flags.items():
         if on:
             raise NotImplementedError(
-                f"{name}=True is not ported yet: the 16x16 kernels (tile16) "
-                "and the bf16/MXU kernel variants come in a later slice of "
-                "the port")
+                f"{name}=True is not ported yet: the bf16/MXU kernel "
+                "variants come in a later slice of the port")
 
 
 def pack_table(prep: Preprocessed) -> torch.Tensor:
@@ -68,10 +71,17 @@ def make_plan(
     tile16: bool = False,
     opa_growth: float = 1.0,
 ) -> PairPlan:
-    """Bin Gaussians into a reusable 32x32 PairPlan."""
-    _not_ported(tile16=tile16)
+    """Bin Gaussians into a reusable PairPlan: 32x32 tiles, or under
+    ``tile16`` 16x16 tiles on the 2*ceil(W/32) x 2*ceil(H/32) grid (one
+    tile column or row more than ceil(W/16) where W mod 32 is in (0, 16])
+    with chunk K16, as the 16x16 kernels walk it."""
     if active is not None:
         prep = prep._replace(valid=prep.valid & active)
+    if tile16:
+        n_gx, n_gy = grid_dims16(width, height)
+        return plan_pairs(prep, TS, TS, 2 * n_gx, 2 * n_gy, pair_capacity,
+                          chunk=K16, radius_scale=radius_scale,
+                          radius_pad=radius_pad, opa_growth=opa_growth)
     n_tx, n_ty = grid_dims(width, height)
     return plan_pairs(prep, TPX, TPY, n_tx, n_ty, pair_capacity, chunk=K,
                       radius_scale=radius_scale, radius_pad=radius_pad,
@@ -91,6 +101,7 @@ def render(
     tanfovx: float, tanfovy: float,
     bg: torch.Tensor,
     active: Optional[torch.Tensor] = None,
+    mean2d_offset: Optional[torch.Tensor] = None,
     pair_capacity: int = 1 << 19,
     plan: Optional[PairPlan] = None,
     need_n_touched: bool = True,
@@ -101,16 +112,20 @@ def render(
     low_pass: float = 0.3,
     device=None,
 ) -> RenderOutput:
-    """Render, differentiable in means3d, cov6, opacities, shs and tau.
-    ``device=None`` means CUDA (raises without a GPU); every tensor
-    argument must already lie on that device."""
-    _not_ported(tile16=tile16, bf16=bf16, mxu=mxu)
+    """Render, differentiable in means3d, cov6, opacities, shs, tau and
+    ``mean2d_offset`` (an all-zeros (N, 2) tensor whose gradient is the
+    screen-space mean gradient densification reads). ``device=None``
+    means CUDA (raises without a GPU); every tensor argument must already
+    lie on that device."""
+    _not_ported(bf16=bf16, mxu=mxu)
     dev = resolve_device(device)
     require_on(dev, means3d=means3d, cov6=cov6, opacities=opacities,
-               shs=shs, w2c=w2c, proj=proj, tau=tau, bg=bg, active=active)
+               shs=shs, w2c=w2c, proj=proj, tau=tau, bg=bg, active=active,
+               mean2d_offset=mean2d_offset)
     prep = preprocess(
         means3d, cov6, opacities, shs, sh_degree, w2c, proj, tau,
-        fx, fy, width, height, tanfovx, tanfovy, low_pass=low_pass)
+        fx, fy, width, height, tanfovx, tanfovy,
+        mean2d_offset=mean2d_offset, low_pass=low_pass)
     if active is not None:
         prep = prep._replace(
             valid=prep.valid & active,
@@ -119,12 +134,17 @@ def render(
             tiles_touched=torch.where(active, prep.tiles_touched,
                                       torch.zeros_like(prep.tiles_touched)))
 
-    n_tx, n_ty = grid_dims(width, height)
     if plan is None:
-        plan = plan_pairs(prep, TPX, TPY, n_tx, n_ty, pair_capacity, chunk=K)
+        plan = make_plan(prep, width, height, pair_capacity, tile16=tile16)
     feat = pair_gather(pack_table(prep), plan)
-    out = composite32(feat, plan.ranges, n_tx, n_ty, width, height,
-                      need_n_touched, nt_weight)
+    if tile16:
+        n_gx, n_gy = grid_dims16(width, height)
+        out = composite16(feat, plan.ranges, n_gx, n_gy, width, height,
+                          need_n_touched, nt_weight)
+    else:
+        n_tx, n_ty = grid_dims(width, height)
+        out = composite32(feat, plan.ranges, n_tx, n_ty, width, height,
+                          need_n_touched, nt_weight)
 
     color = out.color_sum + out.final_T[None] * bg[:, None, None]
     opacity = 1.0 - out.final_T

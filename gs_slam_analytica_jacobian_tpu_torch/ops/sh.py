@@ -73,3 +73,8 @@ def sh_to_color(deg: int, sh: torch.Tensor, dirs: torch.Tensor
                 ) -> torch.Tensor:
     """SH -> clamped RGB: max(eval_sh + 0.5, 0)."""
     return torch.clamp(eval_sh(deg, sh, dirs) + 0.5, min=0.0)
+
+
+def rgb_to_sh0(rgb: torch.Tensor) -> torch.Tensor:
+    """Inverse of the DC band (RGB2SH)."""
+    return (rgb - 0.5) / SH_C0

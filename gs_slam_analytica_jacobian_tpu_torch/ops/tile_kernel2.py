@@ -67,14 +67,14 @@ class Composite2Out(NamedTuple):
     n_touched_pairs: torch.Tensor  # (B_al,) f32 per-pair touch counts
 
 
-def _tile_pixels(n_tx: int, n_ty: int, W: int, H: int, dev):
-    """Per (tile, pixel) coordinates, (n_tiles, P) each: pixel q of tile t
-    is (x, y) = (tx*32 + q%32, ty*32 + q//32). Returns (px, py, pix_in,
-    t16x, t16y) with the 16-px cell of each pixel."""
-    q = torch.arange(P, device=dev)
+def _tile_pixels(n_tx: int, n_ty: int, W: int, H: int, dev, tile: int):
+    """Per (tile, pixel) coordinates, (n_tiles, tile^2) each: pixel q of
+    tile t is (x, y) = (tx*tile + q%tile, ty*tile + q//tile). Returns (px,
+    py, pix_in, t16x, t16y) with the 16-px cell of each pixel."""
+    q = torch.arange(tile * tile, device=dev)
     t_ar = torch.arange(n_tx * n_ty, device=dev)
-    xi = (t_ar % n_tx)[:, None] * TPX + (q % TPX)[None]
-    yi = (t_ar // n_tx)[:, None] * TPY + (q // TPX)[None]
+    xi = (t_ar % n_tx)[:, None] * tile + (q % tile)[None]
+    yi = (t_ar // n_tx)[:, None] * tile + (q // tile)[None]
     px, py = xi.to(torch.float32), yi.to(torch.float32)
     return px, py, (xi < W) & (yi < H), torch.floor(px / 16.0), \
         torch.floor(py / 16.0)
@@ -82,11 +82,12 @@ def _tile_pixels(n_tx: int, n_ty: int, W: int, H: int, dev):
 
 def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                n_ty: int, W: int, H: int, with_ntouch: bool = True,
-               nt_weight: bool = False
+               nt_weight: bool = False, tile: int = TPX
                ) -> Tuple[Composite2Out, torch.Tensor]:
-    """Plain PyTorch compositing. Returns (outputs, pairs_walked) where
-    pairs_walked[t] counts the pair rows tile t walked until every one of
-    its pixels was done — the work this input needs.
+    """Plain PyTorch compositing over square tiles of edge ``tile`` (32 for
+    B1, 16 for B3) on an n_tx x n_ty grid. Returns (outputs, pairs_walked)
+    where pairs_walked[t] counts the pair rows tile t walked until every
+    one of its pixels was done — the work this input needs.
 
     Vectorized over tiles x pixels. The pair rows come in chunks; the
     falloff, alpha and skip tests of a chunk are evaluated at once, then
@@ -102,11 +103,12 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
     start = ranges[:, 0].long()
     n_pairs = (ranges[:, 1] - ranges[:, 0]).long()
 
-    px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev)
+    px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev, tile)
+    n_pix = tile * tile
 
-    T = torch.ones(n_tiles, P, dtype=f32, device=dev)
+    T = torch.ones(n_tiles, n_pix, dtype=f32, device=dev)
     done = ~pix_in
-    acc = torch.zeros(n_tiles, 4, P, dtype=f32, device=dev)
+    acc = torch.zeros(n_tiles, 4, n_pix, dtype=f32, device=dev)
     ntouch = torch.zeros(B_al, dtype=f32, device=dev)
     walked = torch.zeros(n_tiles, dtype=torch.long, device=dev)
     n_chunks = (n_pairs + chunk - 1) // chunk
@@ -158,9 +160,9 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
             ntouch[idx[row_ok]] = nt[row_ok]
 
     planes = torch.cat([acc, T[:, None]], dim=1)               # (T, 5, P)
-    img = (planes.reshape(n_ty, n_tx, 5, TPY, TPX)
+    img = (planes.reshape(n_ty, n_tx, 5, tile, tile)
            .permute(2, 0, 3, 1, 4)
-           .reshape(5, n_ty * TPY, n_tx * TPX))[:, :H, :W]
+           .reshape(5, n_ty * tile, n_tx * tile))[:, :H, :W]
     out = Composite2Out(color_sum=img[0:3], depth_sum=img[3],
                         final_T=img[4], n_touched_pairs=ntouch)
     return out, walked
@@ -189,10 +191,13 @@ def _check(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int, n_ty: int):
         raise ValueError(f"unsupported device {feat.device}")
 
 
-def _launch(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight):
+def launch_fwd(lib: str, feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+               nt_weight) -> Composite2Out:
+    """Launch the forward kernel of library ``lib`` (whose C entry has the
+    signature of ``composite32_fwd``) over an n_tx x n_ty tile grid."""
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned for float4 loads")
-    fn = _build.load("tile_kernel2_fwd").composite32_fwd
+    fn = getattr(_build.load(lib), _build.LIBRARIES[lib][1])
     dev = feat.device
     out = torch.empty(5, H, W, dtype=torch.float32, device=dev)
     # pairs a tile never reaches (early exit, aligned gaps) must read 0;
@@ -207,7 +212,7 @@ def _launch(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight):
                  n_tx * n_ty, n_tx, W, H, int(with_ntouch), int(nt_weight),
                  ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"composite32_fwd launch failed: CUDA error {err}")
+        raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     return Composite2Out(color_sum=out[0:3], depth_sum=out[3],
                          final_T=out[4], n_touched_pairs=ntouch)
 
@@ -219,7 +224,8 @@ def composite32_fwd(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
     if feat.device.type == "cpu":
         return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
                                  with_ntouch=False)
-    out = _launch(feat, ranges, n_tx, n_ty, W, H, False, False)
+    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
+                     False, False)
     composite32_fwd.launches += 1
     return out
 
@@ -237,7 +243,8 @@ def composite32_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
     if feat.device.type == "cpu":
         return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
                                  with_ntouch=True, nt_weight=nt_weight)
-    out = _launch(feat, ranges, n_tx, n_ty, W, H, True, nt_weight)
+    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
+                     True, nt_weight)
     composite32_fwd_ntouch.launches += 1
     return out
 
@@ -252,21 +259,23 @@ composite32_fwd_ntouch.launches = 0
 N_ROWS = 10       # gradient columns a pair row carries (the rest stay 0)
 
 
-def _to_tiles(img: torch.Tensor, n_tx: int, n_ty: int) -> torch.Tensor:
-    """(C, H, W) -> (n_tiles, C, P), zero padded to whole tiles; pixel q of
-    tile t is (x, y) = (tx*32 + q%32, ty*32 + q//32)."""
+def _to_tiles(img: torch.Tensor, n_tx: int, n_ty: int, tile: int
+              ) -> torch.Tensor:
+    """(C, H, W) -> (n_tiles, C, tile^2), zero padded to whole tiles; pixel
+    q of tile t is (x, y) = (tx*tile + q%tile, ty*tile + q//tile)."""
     C, h, w = img.shape
-    x = torch.nn.functional.pad(img, (0, n_tx * TPX - w, 0, n_ty * TPY - h))
-    return (x.reshape(C, n_ty, TPY, n_tx, TPX).permute(1, 3, 0, 2, 4)
-            .reshape(n_tx * n_ty, C, P))
+    x = torch.nn.functional.pad(img, (0, n_tx * tile - w, 0, n_ty * tile - h))
+    return (x.reshape(C, n_ty, tile, n_tx, tile).permute(1, 3, 0, 2, 4)
+            .reshape(n_tx * n_ty, C, tile * tile))
 
 
 def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
-                   d_depth, d_T, n_tx: int, n_ty: int, W: int, H: int
+                   d_depth, d_T, n_tx: int, n_ty: int, W: int, H: int,
+                   tile: int = TPX
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch backward of the compositing. Returns (dfeat (B_al,
-    16), pairs_walked per tile, the count of included (pair, pixel)
-    cells).
+    """Plain PyTorch backward of the compositing over square tiles of edge
+    ``tile`` (32 for B2, 16 for B4). Returns (dfeat (B_al, 16),
+    pairs_walked per tile, the count of included (pair, pixel) cells).
 
     The forward walk is recomputed pixel by pixel with the forward's exact
     operation order, so every inclusion decision matches it. Per included
@@ -289,19 +298,20 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
     start = ranges[:, 0].long()
     n_pairs = (ranges[:, 1] - ranges[:, 0]).long()
 
-    px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev)
+    px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev, tile)
+    n_pix = tile * tile
 
     fwd = _to_tiles(torch.cat([color_sum, depth_sum[None], final_T[None]]),
-                    n_tx, n_ty)                                # (T, 5, P)
+                    n_tx, n_ty, tile)                          # (T, 5, P)
     cot = _to_tiles(torch.cat([d_color, d_depth[None], d_T[None]]),
-                    n_tx, n_ty)
+                    n_tx, n_ty, tile)
     stot = (((cot[:, 0] * fwd[:, 0] + cot[:, 1] * fwd[:, 1])
              + cot[:, 2] * fwd[:, 2]) + cot[:, 3] * fwd[:, 3])
     c0 = cot[:, 4] * fwd[:, 4] + stot                          # (T, P)
 
-    T = torch.ones(n_tiles, P, dtype=f32, device=dev)
+    T = torch.ones(n_tiles, n_pix, dtype=f32, device=dev)
     done = ~pix_in
-    pA = torch.zeros(n_tiles, P, dtype=f32, device=dev)
+    pA = torch.zeros(n_tiles, n_pix, dtype=f32, device=dev)
     dfeat = torch.zeros(B_al, feat.shape[1], dtype=f32, device=dev)
     walked = torch.zeros(n_tiles, dtype=torch.long, device=dev)
     included = torch.zeros((), dtype=torch.long, device=dev)
@@ -408,9 +418,20 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
         return composite32_bwd_plain(feat, ranges, color_sum, depth_sum,
                                      final_T, d_color, d_depth, d_T, n_tx,
                                      n_ty, W, H)
+    dfeat = launch_bwd("tile_kernel2_bwd", feat, ranges, color_sum,
+                       depth_sum, final_T, d_color, d_depth, d_T, n_tx, n_ty,
+                       W, H)
+    composite32_bwd.launches += 1
+    return dfeat
+
+
+def launch_bwd(lib: str, feat, ranges, color_sum, depth_sum, final_T,
+               d_color, d_depth, d_T, n_tx, n_ty, W, H) -> torch.Tensor:
+    """Launch the backward kernel of library ``lib`` (whose C entry has the
+    signature of ``composite32_bwd``) over an n_tx x n_ty tile grid."""
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned for float4 loads")
-    fn = _build.load("tile_kernel2_bwd").composite32_bwd
+    fn = getattr(_build.load(lib), _build.LIBRARIES[lib][1])
     dfeat = torch.zeros(feat.shape[0], FEAT_DIM, dtype=torch.float32,
                         device=feat.device)
     planes = [x.contiguous() for x in (color_sum, depth_sum, final_T,
@@ -423,31 +444,33 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
                  ctypes.c_void_p(dfeat.data_ptr()),
                  n_tx * n_ty, n_tx, W, H, ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"composite32_bwd launch failed: CUDA error {err}")
-    composite32_bwd.launches += 1
+        raise RuntimeError(f"{lib} launch failed: CUDA error {err}")
     return dfeat
 
 
 composite32_bwd.launches = 0
 
 
-class _Composite32(torch.autograd.Function):
-    """The reference's ``jax.custom_vjp`` around ``composite32``: the
-    forward runs a forward wrapper and keeps feat, ranges and the output
-    planes; the backward hands their cotangents (zeros where an output got
-    none) to ``composite32_bwd``. n_touched is not differentiable."""
+class CompositeFn(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp`` around the compositing, for either
+    tile size: ``kernels`` is the (forward, forward with n_touched,
+    backward) wrapper triple of one tile size. The forward runs a forward
+    wrapper and keeps feat, ranges and the output planes; the backward
+    hands their cotangents (zeros where an output got none) to the
+    backward wrapper. n_touched is not differentiable."""
 
     @staticmethod
     def forward(ctx, feat, ranges, n_tx, n_ty, W, H, with_ntouch,
-                nt_weight):
+                nt_weight, kernels):
+        fwd, fwd_ntouch, bwd = kernels
         if with_ntouch:
-            out = composite32_fwd_ntouch(feat, ranges, n_tx, n_ty, W, H,
-                                         nt_weight)
+            out = fwd_ntouch(feat, ranges, n_tx, n_ty, W, H, nt_weight)
         else:
-            out = composite32_fwd(feat, ranges, n_tx, n_ty, W, H)
+            out = fwd(feat, ranges, n_tx, n_ty, W, H)
         ctx.save_for_backward(feat, ranges, out.color_sum, out.depth_sum,
                               out.final_T)
         ctx.grid = (n_tx, n_ty, W, H)
+        ctx.bwd = bwd
         ctx.mark_non_differentiable(out.n_touched_pairs)
         return tuple(out)
 
@@ -457,14 +480,15 @@ class _Composite32(torch.autograd.Function):
         cots = [torch.zeros_like(x) if g is None else g
                 for g, x in ((d_color, color_sum), (d_depth, depth_sum),
                              (d_T, final_T))]
-        dfeat = composite32_bwd(feat, ranges, color_sum, depth_sum, final_T,
-                                *cots, *ctx.grid)
-        return dfeat, None, None, None, None, None, None, None
+        dfeat = ctx.bwd(feat, ranges, color_sum, depth_sum, final_T, *cots,
+                        *ctx.grid)
+        return dfeat, None, None, None, None, None, None, None, None
 
 
 def composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch=True,
                 nt_weight=False) -> Composite2Out:
     """Differentiable 32x32 compositing (the reference's ``composite32``).
     ``with_ntouch=False`` returns zero n_touched."""
-    return Composite2Out(*_Composite32.apply(feat, ranges, n_tx, n_ty, W, H,
-                                             with_ntouch, nt_weight))
+    return Composite2Out(*CompositeFn.apply(
+        feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight,
+        (composite32_fwd, composite32_fwd_ntouch, composite32_bwd)))

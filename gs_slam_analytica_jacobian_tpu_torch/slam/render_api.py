@@ -30,6 +30,7 @@ def render(
     pose: Optional[PoseState] = None,
     bg: Optional[torch.Tensor] = None,
     scaling_modifier: float = 1.0,
+    mean2d_offset: Optional[torch.Tensor] = None,
     use_oracle: bool = False,
     pair_capacity: int = 1 << 20,
     plan=None,
@@ -42,8 +43,10 @@ def render(
     device=None,
 ) -> RenderOutput:
     """Render ``gm`` from ``cam`` (+ pose delta), differentiable in the
-    map's tensors and ``pose.tau``. ``device=None`` means CUDA; the map and
-    camera must lie on the device. ``use_oracle`` selects the dense
+    map's tensors, ``pose.tau`` and ``mean2d_offset`` (the reference's
+    ``viewspace_points`` trick: the gradient of an all-zeros (N, 2) offset
+    is the screen-space mean gradient). ``device=None`` means CUDA; the
+    map and camera must lie on the device. ``use_oracle`` selects the dense
     oracle (ops/renderer_ref.py), which, as in the reference, takes none
     of the tiled renderer's options."""
     dev = _check_inputs(gm, cam, device)
@@ -58,7 +61,7 @@ def render(
         proj=cam.projection(), tau=tau,
         fx=cam.fx, fy=cam.fy, width=cam.width, height=cam.height,
         tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, bg=bg, active=gm.active,
-        device=dev)
+        mean2d_offset=mean2d_offset, device=dev)
     if use_oracle:
         return renderer_ref.render(**kwargs)
     return renderer_tiled.render(
@@ -86,12 +89,14 @@ def make_render_plan(
     radius_pad: float = 0.0,
     scaling_modifier: float = 1.0,
     tile16: bool = False,
+    opa_growth: float = 1.0,
     device=None,
 ):
     """Bin once for the given pose; reuse via ``render(..., plan=plan)``.
     A plan built with a ``radius_pad`` stays a superset of the exact pair
     set while the pose drifts by less than the pad (the kernel's per-pixel
-    rect test always uses the current means)."""
+    rect test always uses the current means); ``opa_growth`` budgets the
+    opacity drift of a map under optimization (mapping's window plans)."""
     dev = _check_inputs(gm, cam, device)
     prep = gmath.preprocess(
         gm.xyz, gm.get_cov6(scaling_modifier), gm.get_opacity(),
@@ -100,4 +105,5 @@ def make_render_plan(
         cam.width, cam.height, cam.tanfovx, cam.tanfovy)
     return make_plan(prep, cam.width, cam.height, pair_capacity,
                      active=gm.active, radius_scale=radius_scale,
-                     radius_pad=radius_pad, tile16=tile16)
+                     radius_pad=radius_pad, tile16=tile16,
+                     opa_growth=opa_growth)

@@ -17,8 +17,10 @@ The reference's ``lax.while_loop``s become Python loops that read the
 convergence flag on the host once per iteration (the 8x8 solve does not
 check its info flag on the host). A device-side loop is later work.
 
-Not ported yet (they raise NotImplementedError, naming the later slice):
-``tile16``, ``kernel_bf16``, ``kernel_mxu`` and ``level_subset``.
+Every tracker takes ``tile16``: its plans and renders then use 16-px
+tiles and the 16x16 kernels. Not ported yet (they raise
+NotImplementedError, naming the later slice): ``kernel_bf16``,
+``kernel_mxu`` and ``level_subset``.
 """
 
 from __future__ import annotations
@@ -272,6 +274,7 @@ def _gn_level(
     plan_in=None,
     use_oracle: bool = False,
     fd_eps: float = 1e-3,
+    tile16: bool = False,
 ):
     """One pyramid level of IRLS Gauss-Newton pose refinement.
 
@@ -300,7 +303,8 @@ def _gn_level(
     else:
         plan = (None if use_oracle else make_render_plan(
             gm, cam_l.replace(R=R, t=t), pair_capacity=pair_capacity,
-            radius_scale=1.1, radius_pad=radius_pad, device=dev))
+            radius_scale=1.1, radius_pad=radius_pad, tile16=tile16,
+            device=dev))
 
     zero = torch.zeros((), dtype=f32, device=dev)
     zeros6 = torch.zeros(6, dtype=f32, device=dev)
@@ -311,8 +315,8 @@ def _gn_level(
         return render(gm, cam_l.replace(R=R_, t=t_),
                       PoseState(tau=tau, exposure_a=zero, exposure_b=zero),
                       bg, use_oracle=use_oracle, pair_capacity=pair_capacity,
-                      plan=plan, need_n_touched=False, low_pass=low_pass,
-                      device=dev)
+                      plan=plan, need_n_touched=False, tile16=tile16,
+                      low_pass=low_pass, device=dev)
 
     def loss_fn(ea_, eb_, R_, t_):
         out = render_at(zeros6, R_, t_)
@@ -460,8 +464,6 @@ def polish_frame(
 
     Returns (R, t, exposure_a, exposure_b, iters_done). ``device=None``
     means CUDA."""
-    if tile16:
-        _not_ported("tile16", "the 16x16 kernels")
     dev = resolve_device(device)
     _check_frame(dev, gm, cam_template, R0, t0, gt_image, gt_depth,
                  grad_mask, bg)
@@ -470,7 +472,7 @@ def polish_frame(
         bg, rgb_boundary_threshold, alpha, monocular, iters, pair_capacity,
         1e-2, 2.0, H_frozen=None, curv="flow", sigma0=1e-3, sigma_decay=0.8,
         sigma_in=None, step_cap=0.05, exact_iters=iters,
-        use_oracle=use_oracle, fd_eps=1e-3)
+        use_oracle=use_oracle, fd_eps=1e-3, tile16=tile16)
     return R, t, ea, eb, itr
 
 
@@ -544,12 +546,11 @@ def track_frame_pyr(
     H_out, per-level overflow, final num_pairs, per-level num_pairs,
     plans_out). ``device=None`` means CUDA."""
     del lr_rot, lr_trans, max_iters
-    for name, on in (("tile16", tile16), ("kernel_bf16", kernel_bf16),
+    for name, on in (("kernel_bf16", kernel_bf16),
                      ("kernel_mxu", kernel_mxu),
                      ("level_subset", level_subset is not None)):
         if on:
-            _not_ported(name, "the 16x16 kernels, kernel variants and tile "
-                        "subsets")
+            _not_ported(name, "the kernel variants and tile subsets")
     dev = resolve_device(device)
     _check_frame(dev, gm, cam_template, R0, t0, gt_image, gt_depth,
                  grad_mask, bg)
@@ -614,7 +615,7 @@ def track_frame_pyr(
             curv=curv, low_pass=lp_l, sigma0=sigma0, sigma_decay=sigma_decay,
             sigma_in=sigma_prev, step_cap=step_cap, exact_iters=exact_l,
             plan_in=None if plan_in is None else plan_in[li],
-            use_oracle=use_oracle, fd_eps=fd_eps)
+            use_oracle=use_oracle, fd_eps=fd_eps, tile16=tile16)
         total_iters += itr_l
         H_out.append(H_prev)
         plans_out.append(plan_l)
@@ -628,7 +629,7 @@ def track_frame_pyr(
         cap_final = pair_capacity
     cam = _cam_level(cam_template, final_level).replace(R=R, t=t)
     out = render(gm, cam, None, bg, use_oracle=use_oracle,
-                 pair_capacity=cap_final, plan=plan_s1,
+                 pair_capacity=cap_final, plan=plan_s1, tile16=tile16,
                  nt_weight=nt_weight and not use_oracle, device=dev)
     med = losses.median_depth(out.depth, out.opacity)
     num_pairs = izero if plan_s1 is None else plan_s1.num_pairs
@@ -655,6 +656,7 @@ def track_frame_gn(
     use_oracle: bool = False,
     fd_eps: float = 1e-3,
     lm_lambda: float = 1e-2,
+    tile16: bool = False,
     device=None,
 ):
     """Gauss-Newton / IRLS pose tracker at full resolution: the exact
@@ -662,7 +664,9 @@ def track_frame_gn(
     Jacobian probed once per frame by 6 finite-difference renders around
     the warm start (analytic exposure columns), reweighted with the
     current residuals every iteration; a 0.7^k step decay after the first
-    full step. One plan from the warm start (radius_scale 1.1, pad 8 px).
+    full step. One plan from the warm start (radius_scale 1.1, pad 8 px;
+    16-px tiles under ``tile16``, a port extension: the reference's
+    tracker has no such switch).
 
     Returns (R, t, exposure_a, exposure_b, n_iters, final RenderOutput,
     median_depth). ``device=None`` means CUDA."""
@@ -673,7 +677,7 @@ def track_frame_gn(
     f32 = torch.float32
     plan = (None if use_oracle else make_render_plan(
         gm, cam_template.replace(R=R0, t=t0), pair_capacity=pair_capacity,
-        radius_scale=1.1, radius_pad=8.0, device=dev))
+        radius_scale=1.1, radius_pad=8.0, tile16=tile16, device=dev))
     zero = torch.zeros((), dtype=f32, device=dev)
     loss_args = (gt_image, gt_depth, grad_mask, rgb_boundary_threshold,
                  alpha, monocular)
@@ -682,7 +686,8 @@ def track_frame_gn(
         return render(gm, cam_template.replace(R=R, t=t),
                       PoseState(tau=tau, exposure_a=zero, exposure_b=zero),
                       bg, use_oracle=use_oracle, pair_capacity=pair_capacity,
-                      plan=plan, need_n_touched=False, device=dev)
+                      plan=plan, need_n_touched=False, tile16=tile16,
+                      device=dev)
 
     Jc, Jd = _fd_jacobian(lambda tau: render_at(tau, R0, t0), fd_eps, dev)
 
@@ -711,7 +716,7 @@ def track_frame_gn(
 
     out = render(gm, cam_template.replace(R=R, t=t), None, bg,
                  use_oracle=use_oracle, pair_capacity=pair_capacity,
-                 device=dev)
+                 tile16=tile16, device=dev)
     med = losses.median_depth(out.depth, out.opacity)
     return R, t, ea, eb, itr, out, med
 
@@ -733,6 +738,7 @@ def track_frame(
     pair_capacity: int = 1 << 20,
     use_oracle: bool = False,
     amortize_binning: bool = True,
+    tile16: bool = False,
     device=None,
 ):
     """The reference-parity Adam tracker (reference
@@ -741,7 +747,9 @@ def track_frame(
     a, b), the pose delta retracted onto (R, t) after every step,
     converged when ||tau|| < 1e-4. ``amortize_binning`` bins once from the
     warm start (radius_scale 1.1, pad 8 px) and reuses that plan; the
-    final keyframing render at the converged pose plans afresh.
+    final keyframing render at the converged pose plans afresh. Under
+    ``tile16`` (a port extension, as in ``track_frame_gn``) every plan
+    and render uses 16-px tiles.
 
     Returns (R, t, exposure_a, exposure_b, n_iters, final RenderOutput,
     median_depth). ``device=None`` means CUDA."""
@@ -753,7 +761,7 @@ def track_frame(
                        dtype=f32, device=dev)
     plan = (make_render_plan(
         gm, cam_template.replace(R=R0, t=t0), pair_capacity=pair_capacity,
-        radius_scale=1.1, radius_pad=8.0, device=dev)
+        radius_scale=1.1, radius_pad=8.0, tile16=tile16, device=dev)
         if amortize_binning and not use_oracle else None)
     zero = torch.zeros((), dtype=f32, device=dev)
     loss_args = (gt_image, gt_depth, grad_mask, rgb_boundary_threshold,
@@ -763,7 +771,8 @@ def track_frame(
         return render(gm, cam_template.replace(R=R, t=t),
                       PoseState(tau=tau, exposure_a=zero, exposure_b=zero),
                       bg, use_oracle=use_oracle, pair_capacity=pair_capacity,
-                      plan=plan, need_n_touched=False, device=dev)
+                      plan=plan, need_n_touched=False, tile16=tile16,
+                      device=dev)
 
     R, t = R0, t0
     ea = torch.zeros((), dtype=f32, device=dev)
@@ -786,6 +795,6 @@ def track_frame(
 
     out = render(gm, cam_template.replace(R=R, t=t), None, bg,
                  use_oracle=use_oracle, pair_capacity=pair_capacity,
-                 device=dev)
+                 tile16=tile16, device=dev)
     med = losses.median_depth(out.depth, out.opacity)
     return R, t, ea, eb, itr, out, med

@@ -33,6 +33,11 @@ from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel2 as ttk
 from test_renderer_ref import make_scene
 from test_torch_composite import _feat_ranges, _opaque_front
 
+# one intra-op thread: under pytest-xdist each worker would otherwise
+# start a thread pool over every core, and the plain versions' many
+# small operations then spin-wait against each other's pools
+torch.set_num_threads(1)
+
 
 def _scene(name):
     if name == "scene":

@@ -1,6 +1,6 @@
 """GPU tests of the port (``cuda`` marker): the CUDA compositing kernels
-(forward and backward) against their plain PyTorch versions, alone and
-inside a full render and its gradients.
+(forward and backward, 32x32 and 16x16) against their plain PyTorch
+versions, alone and inside a full render and its gradients.
 
 They skip without a GPU. On a machine with one (where JAX need not be
 installed) run them without the suite's JAX conftest:
@@ -17,12 +17,15 @@ from gs_slam_analytica_jacobian_tpu_torch.models import gaussian_map as gmap
 from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera
 from gs_slam_analytica_jacobian_tpu_torch.ops import gaussian_math as gmath
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled
+from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel16 as tk16
 from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel2 as tk
 from gs_slam_analytica_jacobian_tpu_torch.ops.pair_gather import pair_gather
 from gs_slam_analytica_jacobian_tpu_torch.ops.renderer_tiled import (
     make_plan, pack_table)
 from gs_slam_analytica_jacobian_tpu_torch.scenes import make_room_map
 from gs_slam_analytica_jacobian_tpu_torch.slam.render_api import render
+
+from chip_smoke import resort_full_depth_key
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +151,91 @@ def test_render_gradients_on_gpu_match_cpu(cuda):
         scale = float(b.abs().max())
         assert scale > 0, name
         assert torch.allclose(a, b, rtol=1e-3, atol=1e-3 * scale), name
+
+
+def _plan16(gm, cam, dev):
+    prep = gmath.preprocess(
+        gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
+        cam.w2c(), cam.projection(), torch.zeros(6, device=dev), cam.fx,
+        cam.fy, cam.width, cam.height, cam.tanfovx, cam.tanfovy)
+    plan = make_plan(prep, cam.width, cam.height, 1 << 18, radius_pad=2.0,
+                     tile16=True)
+    feat = pair_gather(pack_table(prep), plan).contiguous()
+    return feat, plan, tk16.grid_dims16(cam.width, cam.height)
+
+
+@pytest.mark.parametrize("with_ntouch,nt_weight",
+                         [(False, False), (True, False), (True, True)])
+def test_kernel16_bitwise_matches_plain(cuda, with_ntouch, nt_weight):
+    """B3' / B3 against composite16_plain on a 16-px plan whose grid
+    (2*ceil(W/32) x 2*ceil(H/32)) holds a tile column past the image."""
+    gm, cam = _room(cuda, W=312, H=180)
+    feat, plan, (n_gx, n_gy) = _plan16(gm, cam, cuda)
+    W, H = cam.width, cam.height
+    wrappers = (tk16.composite16_fwd, tk16.composite16_fwd_ntouch)
+    before = [f.launches for f in wrappers]
+    got = tk16.composite16(feat, plan.ranges, n_gx, n_gy, W, H, with_ntouch,
+                           nt_weight)
+    ref = tk16.composite16_plain(feat, plan.ranges, n_gx, n_gy, W, H,
+                                 with_ntouch, nt_weight)
+    torch.cuda.synchronize()
+    assert wrappers[int(with_ntouch)].launches \
+        == before[int(with_ntouch)] + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    if with_ntouch:
+        assert float(got.n_touched_pairs.sum()) > 0
+
+
+def test_backward_kernel16_matches_plain(cuda):
+    """B4 against composite16_bwd_plain: the same walk; only the order in
+    which a row is summed over the tile's 256 pixels differs."""
+    gm, cam = _room(cuda, W=312, H=180)
+    feat, plan, (n_gx, n_gy) = _plan16(gm, cam, cuda)
+    W, H = cam.width, cam.height
+    fwd = tk16.composite16_plain(feat, plan.ranges, n_gx, n_gy, W, H,
+                                 with_ntouch=False)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cot = torch.randn(5, H, W, generator=g, device=cuda)
+    args = (feat, plan.ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
+            cot[0:3], cot[3], cot[4], n_gx, n_gy, W, H)
+    before = tk16.composite16_bwd.launches
+    got = tk16.composite16_bwd(*args)
+    ref = tk16.composite16_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert tk16.composite16_bwd.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[:, 10:].any())
+    for col in range(10):
+        scale = float(ref[:, col].abs().max())
+        assert scale > 0, col
+        assert float((got[:, col] - ref[:, col]).abs().max()) \
+            <= 1e-5 * scale, col
+    assert torch.equal(got.any(dim=1), ref.any(dim=1))
+
+
+def test_render_tile16_matches_tile32_on_gpu(cuda):
+    """The same scene through the 16x16 and the 32x32 kernels on fresh,
+    conic-culled plans re-sorted on the full depth key
+    (chip_smoke.resort_full_depth_key): each pixel composites
+    the same pairs in the same order, so the renders agree bit for bit,
+    n_touched included. (With the reference's packed key the 16-px grid
+    keeps 2 fewer depth bits, and depth-tied splats composite in emission
+    order there; chip_smoke.py reports that difference.)"""
+    gm, cam = _room(cuda, W=312, H=180)
+    prep = gmath.preprocess(
+        gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
+        cam.w2c(), cam.projection(), torch.zeros(6, device=cuda), cam.fx,
+        cam.fy, cam.width, cam.height, cam.tanfovx, cam.tanfovy)
+    outs = []
+    for t16 in (False, True):
+        plan = resort_full_depth_key(
+            make_plan(prep, cam.width, cam.height, 1 << 18,
+                      active=gm.active, tile16=t16), prep.depth)
+        outs.append(render(gm, cam, None, torch.zeros(3, device=cuda),
+                           plan=plan, tile16=t16, device=cuda))
+    torch.cuda.synchronize()
+    for name in ("color", "depth", "opacity", "n_touched"):
+        assert torch.equal(getattr(outs[0], name), getattr(outs[1], name)), \
+            name
+    assert int(outs[1].n_touched.sum()) > 0

@@ -28,7 +28,16 @@ def _port_modules():
     return mods
 
 
+# the modules of the mapping slice, each of which must be among those
+# imported below
+MAPPING_MODULES = ("utils.logging", "ops.knn", "ops.tile_kernel16",
+                   "slam.seeding", "slam.mapping", "slam.backend")
+
+
 def test_port_imports_no_jax():
+    mods = _port_modules()
+    for m in MAPPING_MODULES:
+        assert f"{PORT.name}.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"
@@ -126,3 +135,29 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
     # tensors on another device than the one asked for are refused
     with pytest.raises(ValueError):
         render_api.render(gm, cam, device="meta")
+
+
+def test_mapping_entry_points_default_to_cuda(monkeypatch):
+    """The mapping slice's entry points take ``device=None`` as CUDA and
+    raise without a GPU; the device mesh raises NotImplementedError."""
+    from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera
+    from gs_slam_analytica_jacobian_tpu_torch.slam import mapping
+    from gs_slam_analytica_jacobian_tpu_torch.slam.backend import BackEnd
+
+    cam = Camera.create(np.eye(3), np.zeros(3), 30.0, 30.0, 31.5, 15.5, 64,
+                        32, device="cpu")
+    cfg = {"Dataset": {}, "opt_params": {}, "model_params": {},
+           "Training": {"mesh_devices": 2}}
+    with pytest.raises(NotImplementedError):
+        BackEnd(cfg, cam, device="cpu")
+    with pytest.raises(NotImplementedError):
+        mapping.mapping_steps(None, None, None, [[0]], [True], [False],
+                              [False], None, cam, None, {}, [1e-3], 0.0,
+                              0.0, 0.01, 1, mesh=object())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mapping.KFStore.empty(2, 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mapping.PoseAdamState.zero(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BackEnd({"Training": {}}, cam)

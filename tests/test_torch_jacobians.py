@@ -26,6 +26,11 @@ from gs_slam_analytica_jacobian_tpu_torch.ops import gaussian_math as tgm
 from gs_slam_analytica_jacobian_tpu_torch.ops import jacobians as tjac
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled as trt
 
+# one intra-op thread: under pytest-xdist each worker would otherwise
+# start a thread pool over every core, and the plain versions' many
+# small operations then spin-wait against each other's pools
+torch.set_num_threads(1)
+
 FIXDIR = os.path.join(os.path.dirname(__file__), "fixtures")
 
 

@@ -19,6 +19,11 @@ from gs_slam_analytica_jacobian_tpu_torch.ops import sh as tsh
 
 from test_renderer_ref import make_scene
 
+# one intra-op thread: under pytest-xdist each worker would otherwise
+# start a thread pool over every core, and the plain versions' many
+# small operations then spin-wait against each other's pools
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

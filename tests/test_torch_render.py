@@ -23,6 +23,11 @@ from gs_slam_analytica_jacobian_tpu_torch.slam import render_api as tapi
 
 from test_renderer_ref import make_scene
 
+# one intra-op thread: under pytest-xdist each worker would otherwise
+# start a thread pool over every core, and the plain versions' many
+# small operations then spin-wait against each other's pools
+torch.set_num_threads(1)
+
 
 def _assert_render_equal(got, ref, n_touched=True):
     np.testing.assert_allclose(got.color.numpy(), np.asarray(ref.color),
@@ -152,15 +157,12 @@ def test_weights_carried_across_render_the_same():
 
 
 def test_unported_flags_raise():
-    """tile16, bf16 and mxu are not ported: the port raises instead of
-    ignoring them (the reference's tile16 branch silently drops bf16/mxu,
-    ops/renderer_tiled.py:149)."""
+    """bf16 and mxu are not ported: the port raises instead of ignoring
+    them, beside tile16 too (the reference's tile16 branch silently drops
+    bf16/mxu, ops/renderer_tiled.py:149)."""
     sc = make_scene(np.random.default_rng(3), n=10, W=64, H=32)
     _, targs = _args(sc, np.zeros(6, np.float32))
-    for flags in ({"tile16": True}, {"bf16": True}, {"mxu": True},
+    for flags in ({"bf16": True}, {"mxu": True},
                   {"tile16": True, "bf16": True}):
         with pytest.raises(NotImplementedError):
             trt.render(*targs, torch.zeros(3), device="cpu", **flags)
-    prep = tgm.preprocess(*targs)
-    with pytest.raises(NotImplementedError):
-        trt.make_plan(prep, 64, 32, 1024, tile16=True)

@@ -40,6 +40,11 @@ from gs_slam_analytica_jacobian_tpu_torch.ops import losses as tlosses
 from gs_slam_analytica_jacobian_tpu_torch.slam import render_api as tapi
 from gs_slam_analytica_jacobian_tpu_torch.slam import tracking as ttr
 
+# one intra-op thread: under pytest-xdist each worker would otherwise
+# start a thread pool over every core, and the plain versions' many
+# small operations then spin-wait against each other's pools
+torch.set_num_threads(1)
+
 W, H = 96, 64
 CAP = 1 << 13
 
@@ -236,8 +241,36 @@ def test_track_frame_pyr_matches_jax(scene):
     np.testing.assert_allclose(float(res_t[6]), float(res_j[6]), rtol=1e-3)
 
 
+def test_track_frame_pyr_tile16_matches_jax(scene):
+    """The pyramid tracker on 16-px plans and the 16x16 kernels (the
+    reference's tile16 switch): final R and t within 1e-4, iterations
+    within 1, the per-level pair counts equal."""
+    sc = scene
+    kw = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
+              pair_capacity=CAP, levels=(2, 1), level_iters=(3, 4),
+              level_exact=(0, 0), curv="flow", final_level=1,
+              match_blur=True, plan_pad=4.0, tile16=True)
+    res_j = jtr.track_frame_pyr(
+        sc["gm_j"], sc["cam_j"], jnp.asarray(sc["R0"]),
+        jnp.asarray(sc["t0"]), jnp.asarray(sc["gt_image"]),
+        jnp.asarray(sc["gt_depth"]), jnp.asarray(sc["mask"]), jnp.zeros(3),
+        interpret=True, **kw)
+    res_t = ttr.track_frame_pyr(
+        sc["gm_t"], sc["cam_t"], T(sc["R0"]), T(sc["t0"]),
+        T(sc["gt_image"]), T(sc["gt_depth"]), T(sc["mask"]), torch.zeros(3),
+        device="cpu", **kw)
+    np.testing.assert_allclose(res_t[1].numpy(), np.asarray(res_j[1]),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res_t[0].numpy(), np.asarray(res_j[0]),
+                               rtol=0, atol=1e-4)
+    assert abs(int(res_t[4]) - int(res_j[4])) <= 1, (res_t[4], res_j[4])
+    np.testing.assert_array_equal(res_t[10].numpy(), np.asarray(res_j[10]))
+    # it tracked: the start pose was ~2.4 cm off the identity ground truth
+    assert np.linalg.norm(res_t[1].numpy()) < 5e-3
+
+
 @pytest.mark.parametrize("flag", [
-    dict(tile16=True), dict(kernel_bf16=True), dict(kernel_mxu=True),
+    dict(kernel_bf16=True), dict(kernel_mxu=True),
     dict(level_subset=(1.0, 0.5))])
 def test_unported_tracker_options_raise(scene, flag):
     sc = scene
@@ -475,6 +508,46 @@ def test_exact_pyramid_room_parity_midsize(room_midsize, carry_H):
         err_j = np.linalg.norm(np.asarray(res_j[1]) - t_gt)
         err_t = np.linalg.norm(res_t[1].numpy() - t_gt)
         assert abs(err_t - err_j) < 1e-4 and err_j > 1e-3, (k, err_t, err_j)
+
+
+@pytest.mark.slow
+def test_main_path_tile16_room_parity_midsize(room_midsize):
+    """The chip run's main-path schedule (levels (4, 2, 1), iters (5, 12,
+    2), flow curvature, final level 2, matched blur, pad 4) on 16-px plans
+    and the 16x16 kernels, over frames 1..3 of the mid-size room, each
+    frame from the same warm start predicted from the JAX estimates: on
+    every frame the port lands on the JAX pose (within 1e-4) and error,
+    with the same per-level pair counts. About 3 minutes on one CPU worker
+    (``-m slow``)."""
+    rm = room_midsize
+    cv_start, ca_start = rm["warm"]
+    kw = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
+              pair_capacity=MID_CAP, levels=(4, 2, 1), level_iters=(5, 12, 2),
+              level_exact=(0, 0, 0), curv="flow", final_level=2,
+              match_blur=True, plan_pad=4.0, tile16=True)
+    est = [(T(rm["poses"][0][:3, :3]), T(rm["poses"][0][:3, 3]))]
+    for k in (1, 2, 3):
+        if len(est) >= 3:
+            Rw, tw = ca_start(*est[-1], *est[-2], *est[-3])
+        elif len(est) == 2:
+            Rw, tw = cv_start(*est[-1], *est[-2])
+        else:
+            Rw, tw = est[-1]
+        img, dep, mask = rm["gts"][k]
+        res_j = jtr.track_frame_pyr(
+            rm["gm_j"], rm["cam_j"], jnp.asarray(Rw.numpy()),
+            jnp.asarray(tw.numpy()), jnp.asarray(img), jnp.asarray(dep),
+            jnp.asarray(mask), jnp.zeros(3), interpret=True, **kw)
+        res_t = ttr.track_frame_pyr(
+            rm["gm_t"], rm["cam_t"], Rw, tw, T(img), T(dep), T(mask),
+            torch.zeros(3), device="cpu", **kw)
+        est.append((T(res_j[0]), T(res_j[1])))
+        _assert_pose(res_t, res_j)
+        np.testing.assert_array_equal(res_t[10].numpy(), np.asarray(res_j[10]))
+        t_gt = rm["poses"][k][:3, 3]
+        err_j = np.linalg.norm(np.asarray(res_j[1]) - t_gt)
+        err_t = np.linalg.norm(res_t[1].numpy() - t_gt)
+        assert abs(err_t - err_j) < 1e-4, (k, err_t, err_j)
 
 
 @pytest.mark.slow
