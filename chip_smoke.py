@@ -74,13 +74,38 @@ Phases (each one that fails ends the run with a non-zero exit code):
    loss that did not fall, a kernel of its tile size not launched or one
    of the other launched, and on PSNR and pose-error limits; the two
    fail unless they agree within MAP_T16_PSNR_DB and MAP_T16_ACTIVE_REL.
-6. A ``{"kernels": [...]}`` line (launches summed over the paths), then
+6. The SLAM paths, each with the launch counts from 0: the port's SLAM
+   driver (``SLAM.run`` with the rendering eval and SLAM_REFINE_ITERS of
+   color refinement) on the synthetic room at 1216x672, SLAM_FRAMES
+   frames rendered on the host before the clock, under SLAM_CONFIG
+   (scripts/tpu_slam_run.py's settings over configs/synthetic/test.yaml):
+   ``slam`` (single thread, frontend defaults), ``slam-async`` (the
+   threaded pipeline) and ``slam-bf16`` (kernel_bf16 with two exact
+   full-resolution iterations a frame). Each prints the driver's FPS,
+   per-frame track p50/max, keyframes, ATE, keyframe PSNR before and
+   after refinement, active Gaussians and overflow, and fails on an ATE
+   of 1 cm or more or above its regression limit (SLAM_ATE_REG_M), fewer
+   than SLAM_MIN_KF keyframes, overflow, a
+   missing run_summary.json or ply (or one that does not reload to the
+   map), a frame not tracked or a kernel of its path not launched;
+   slam-bf16 also unless its ATE is within SLAM_BF16_ATE_REL of slam's.
+7. A ``{"kernels": [...]}`` line (launches summed over the paths), then
    the card's name and power limit, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Phase 2 also holds B3', B3 and B4 (the 16x16 kernels) against their plain
-versions at the tracker's and the mapping path's plans, and
-render(tile16=True) against render(tile16=False). A failed gate is
+versions at the tracker's and the mapping path's plans,
+render(tile16=True) against render(tile16=False), and the bf16 kernels
+B1'-bf16, B1-bf16 and B2-bf16 against their plain bf16 versions on the
+room's s=2 tracker plan and s=1 exact plan (the f32 kernel's time on the
+same plan beside each). Between phases 3 and 4, ``render-bf16``:
+render(bf16=True) with n_touched at the five poses, B1-bf16's path (the
+trackers' keyframing render stays f32, as in the reference), reported
+against the f32 renders. Phase 4 ends with ``main-path-bf16`` and
+``exact-pyramid-bf16``: the main path's schedule and the exact pyramid
+with kernel_bf16, each followed by its f32 path's passes for the walls,
+held to their f32 paths' limits and to BF16_REL of their mean errors in
+the same call (exact-pyramid-bf16: at most BF16_REL above). A failed gate is
 printed and the run goes on; it exits non-zero before the result lines
 if any gate failed. Without CUDA it exits non-zero before printing any
 result.
@@ -125,7 +150,9 @@ N_ROOM = 200_000
 N_CLOUD = 50_000
 PAIR_CAP = 1 << 20
 FRAMES = 5
-TIMED_REPS = 8
+# timed passes of the main path, keyframe-polish and the BENCH_r05
+# schedule: 5 since PR 4 (8 before), for the SLAM paths' time
+TIMED_REPS = 5
 
 # The JAX tracker's mean translation error at the BENCH_r05 schedule
 # (BENCH_r05.json) on this room map and trajectory. The port's run of that
@@ -283,6 +310,90 @@ MAP_PSNR_MAPPED_MIN_DB = 31.0
 MAP_PSNR_REFINED_MIN_DB = 33.0
 MAP_POSE_ERR_MAX_MM = 2.5
 
+# The bf16 tracker paths (kernel_bf16): timed passes, each followed by
+# the same passes of its f32 path (uncounted), so the two walls are read
+# minutes apart at most; and their limits beside the f32 paths in the
+# same call: main-path-bf16 under 1 mm and within BF16_REL of the main
+# path's mean error; exact-pyramid-bf16 under EXACT_MAX_ERR_M and at most
+# BF16_REL above exact-pyramid's. The exact pyramid's gate is one-sided:
+# on the H100 (NVIDIA H100 80GB HBM3, 700.00 W) exact-pyramid-bf16 read
+# 1.057 mm mean (1.620 max) against exact-pyramid's 1.860 mm (4.356 mm
+# max, one frame that ends 20 all-exact iterations in a worse valley):
+# bf16's rounding moves that frame's descent, and a two-sided 10% gate
+# failed on an error 43% lower. The kernels themselves are held bit for
+# bit against their plain versions.
+BF16_REPS = 3
+BF16_REL = 0.10
+
+# The SLAM paths: the port's SLAM driver on the synthetic room at
+# 1216x672 (fx = fy = 600), scripts/tpu_slam_run.py:34-95's settings over
+# configs/synthetic/test.yaml's values, written out as a dict (the card
+# machine has no pyyaml). SLAM_FRAMES frames (that script's default),
+# rendered before the clock starts. The only cut: color refinement,
+# 26000 -> SLAM_REFINE_ITERS iterations.
+SLAM_FRAMES = 24
+SLAM_REFINE_ITERS = 256
+SLAM_CONFIG = {
+    "seed": 0,
+    "Results": dict(save_results=True, save_dir="results", save_trj=True,
+                    save_trj_kf_intv=4, use_gui=False, eval_rendering=True,
+                    use_wandb=False),
+    "Dataset": dict(
+        type="synthetic", sensor_type="depth", scene="room",
+        motion_scale=0.5, pcd_downsample=64, pcd_downsample_init=16,
+        adaptive_pointsize=True, point_size=0.05, n_frames=SLAM_FRAMES,
+        seed=0, single_thread=True,
+        Calibration=dict(fx=600.0, fy=600.0, cx=607.5, cy=335.5, k1=0.0,
+                         k2=0.0, p1=0.0, p2=0.0, k3=0.0, width=1216,
+                         height=672, depth_scale=1.0, distorted=False)),
+    "Training": dict(
+        init_itr_num=128, init_gaussian_update=64, init_gaussian_reset=5000,
+        init_gaussian_th=0.005, init_gaussian_extent=30,
+        tracking_itr_num=20, mapping_itr_num=32, gaussian_update_every=64,
+        gaussian_update_offset=32, gaussian_th=0.7, gaussian_extent=1.0,
+        gaussian_reset=2001, size_threshold=20, kf_interval=2,
+        window_size=6, pose_window=3, edge_threshold=1.1,
+        rgb_boundary_threshold=0.01, kf_translation=0.01,
+        kf_min_translation=0.005, kf_overlap=1.0, prune_mode="slam",
+        single_thread=True, spherical_harmonics=False, monocular=False,
+        initial_capacity=1 << 18, pair_capacity=1 << 19,
+        kf_pending_yield_s=0.0, plan_reuse_frames=0, map_coarse_frac=0.7,
+        map_coarse_level=2, prewarm_tracking=True, prewarm_mapping=True,
+        tile16=False, lr=dict(cam_rot_delta=0.003, cam_trans_delta=0.001)),
+    "opt_params": dict(
+        iterations=30000, position_lr_init=0.00016,
+        position_lr_final=0.0000016, position_lr_delay_mult=0.01,
+        position_lr_max_steps=30000, feature_lr=0.0025, opacity_lr=0.05,
+        scaling_lr=0.001, rotation_lr=0.001, percent_dense=0.01,
+        lambda_dssim=0.2, densification_interval=100,
+        opacity_reset_interval=3000, densify_from_iter=500,
+        densify_until_iter=15000, densify_grad_threshold=0.01),
+    "model_params": dict(sh_degree=0),
+}
+# the three runs: frontend defaults (f32); the threaded pipeline
+# (single_thread false in both sections, the script's 0.5 s pending-
+# keyframe yield); f32 plus kernel_bf16 with two exact full-resolution
+# iterations a frame, so B1'-bf16 and B2-bf16 run through the frontend
+SLAM_RUNS = (
+    ("slam", {}, ("composite32_fwd", "composite32_fwd_ntouch",
+                  "composite32_bwd")),
+    ("slam-async", {"single_thread": False, "kf_pending_yield_s": 0.5},
+     ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")),
+    ("slam-bf16", {"kernel_bf16": True, "pyr_exact": [0, 0, 2]},
+     ("composite32_fwd_bf16", "composite32_bwd_bf16",
+      "composite32_fwd_ntouch")),
+)
+# ATE: under 1 cm, and under a regression limit of ~1.25x the first H100
+# reading (NVIDIA H100 80GB HBM3, 700.00 W: slam 1.892 mm, slam-bf16
+# 1.797 mm). slam-async read 1.563 mm with 7 keyframes; its keyframe set
+# follows the threads' timing, so it shares slam's limit rather than one
+# at 1.25x its own first reading.
+SLAM_ATE_MAX_M = 0.01
+SLAM_ATE_REG_M = {"slam": 2.4e-3, "slam-async": 2.4e-3,
+                  "slam-bf16": 2.3e-3}
+SLAM_BF16_ATE_REL = 1.25
+SLAM_MIN_KF = 3
+
 
 FAILURES = []
 
@@ -344,22 +455,24 @@ def pose_list(n=FRAMES):
 # ---------------------------------------------------------------------------
 
 def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                nt_weight=False, tile16=False, time_plain=True):
+                nt_weight=False, tile16=False, time_plain=True, bf16=False):
     """A forward kernel against its plain version on one plan: B1/B1'
-    (32x32), or under ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px
-    tile grid). Plain time unless not ``time_plain``."""
+    (32x32), under ``bf16`` their bfloat16 bodies (and the f32 kernel's
+    time on the same plan beside them), or under ``tile16`` B3/B3'
+    (n_tx x n_ty is then the 16-px tile grid). Plain time unless not
+    ``time_plain``."""
     tile = 16 if tile16 else 32
 
-    def kernel():
+    def kernel(bf16=bf16):
         if tile16:
             return tk16.composite16(feat, ranges, n_tx // 2, n_ty // 2, w, h,
                                     with_ntouch, nt_weight)
         return tk.composite32(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                              nt_weight)
+                              nt_weight, bf16)
 
     def plain():
         return tk.plain_walk(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                             nt_weight, tile=tile)
+                             nt_weight, tile=tile, bf16=bf16)
 
     torch.cuda.synchronize()
     (ref, walked) = plain()
@@ -375,19 +488,24 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     nt_bad = int((got.n_touched_pairs != ref.n_touched_pairs).sum())
     walked_pairs = int(walked.sum())
     ms = time_ms(kernel)
-    plain_ms = time_ms(plain, reps=5, warm=1) if time_plain else None
+    plain_ms = (time_ms(plain, reps=3 if bf16 else 5, warm=1) if time_plain
+                else None)
     n_bytes = (walked_pairs * 64 + ranges.numel() * 4 + 5 * h * w * 4
                + (walked_pairs * 4 if with_ntouch else 0))
     n_ops = walked_pairs * tile * tile * OPS_PER_CELL
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_OPS_PER_S * 1e3
     rec = dict(case=name, tile=tile, shape=f"{w}x{h}",
-               with_ntouch=with_ntouch,
+               with_ntouch=with_ntouch, bf16=bf16,
                nt_weight=nt_weight, live_pairs=live,
                walked_pairs=walked_pairs, max_abs_err=errs,
                nt_mismatch=nt_bad, ms=ms, plain_ms=plain_ms,
                bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes > t_ops else "operations")
+    if bf16:
+        rec["f32_ms"] = time_ms(lambda: kernel(False))
+        rec["differs_from_f32"] = float(
+            (got.color_sum - kernel(False).color_sum).abs().max())
     print("kernel-vs-plain " + json.dumps(rec), flush=True)
     if not finite:
         fail(f"{name}: non-finite kernel output")
@@ -395,6 +513,8 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         fail(f"{name}: kernel differs from plain by {errs}")
     if nt_bad > NT_MISMATCH_FRAC * live:
         fail(f"{name}: {nt_bad} n_touched mismatches of {live} live pairs")
+    if bf16 and rec["differs_from_f32"] <= IMG_TOL:
+        fail(f"{name}: the bf16 kernel's image equals the f32 kernel's")
     return rec
 
 
@@ -542,12 +662,13 @@ def mapping_cotangent(planes, target):
 
 def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             target, seed, time_plain=True, tile16=False, opa_growth=1.0,
-            cot_fn=loss_cotangent):
-    """The backward kernel against its plain version on one plan (B2, or
-    under ``tile16`` B4 on a 16-px plan) under ``cot_fn``'s loss
-    cotangent and a seeded one: per-column error, dL/dtau through both
-    routes, and kernel / bound times, and the plain version's unless not
-    ``time_plain``."""
+            cot_fn=loss_cotangent, bf16=False):
+    """The backward kernel against its plain version on one plan (B2,
+    under ``bf16`` B2-bf16 on the bf16 forward's planes with the f32
+    kernel's time beside it, or under ``tile16`` B4 on a 16-px plan)
+    under ``cot_fn``'s loss cotangent and a seeded one: per-column error,
+    dL/dtau through both routes, and kernel / bound times, and the plain
+    version's unless not ``time_plain``."""
     tau = torch.zeros(6, device=dev, requires_grad=True)
     prep = prep_fn(tau)
     plan = make_plan(prep, w, h, cap, radius_scale=radius_scale,
@@ -561,12 +682,13 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         def kernel(*a):
             return tk16.composite16_bwd(*a[:8], n_tx // 2, n_ty // 2, w, h)
     else:
-        def kernel(*a):
-            return tk.composite32_bwd(*a)
+        def kernel(*a, bf16=bf16):
+            return tk.composite32_bwd(*a, bf16=bf16)
     with torch.no_grad():
         fwd = (tk16.composite16_fwd(feat_c, ranges, n_tx // 2, n_ty // 2, w,
                                     h) if tile16
-               else tk.composite32_fwd(feat_c, ranges, n_tx, n_ty, w, h))
+               else tk.composite32_fwd(feat_c, ranges, n_tx, n_ty, w, h,
+                                       bf16=bf16))
     planes = (fwd.color_sum, fwd.depth_sum, fwd.final_T)
     gen = torch.Generator(device=dev).manual_seed(seed)
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
@@ -578,7 +700,8 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         torch.cuda.synchronize()
         with torch.no_grad():
             got = kernel(*args)
-            ref, walked, included = tk.plain_bwd_walk(*args, tile=tile)
+            ref, walked, included = tk.plain_bwd_walk(*args, tile=tile,
+                                                      bf16=bf16)
         torch.cuda.synchronize()
         col_rel = []
         for c in range(tk.N_ROWS):
@@ -591,8 +714,11 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
                          / dtau_p.abs().max())
         with torch.no_grad():
             ms = time_ms(lambda: kernel(*args))
-            plain_ms = (time_ms(lambda: tk.plain_bwd_walk(*args, tile=tile),
-                                reps=7, warm=1) if time_plain else None)
+            plain_ms = (time_ms(lambda: tk.plain_bwd_walk(
+                *args, tile=tile, bf16=bf16), reps=3 if bf16 else 7, warm=1)
+                if time_plain else None)
+            f32_ms = time_ms(lambda: kernel(*args, bf16=False)) if bf16 \
+                else None
         walked_pairs = int(walked.sum())
         included_cells = int(included)
         n_bytes = (walked_pairs * 64 + feat_c.shape[0] * 64
@@ -602,7 +728,7 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / FP32_OPS_PER_S * 1e3
         rec = dict(
-            case=name, tile=tile, cotangent=kind, shape=f"{w}x{h}",
+            case=name, tile=tile, cotangent=kind, shape=f"{w}x{h}", bf16=bf16,
             B_al=int(feat_c.shape[0]), live_pairs=int(plan.num_pairs),
             walked_pairs=walked_pairs,
             walked_cells=walked_pairs * tile * tile,
@@ -612,10 +738,10 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             zero_rows_equal=bool(torch.equal(got.any(dim=1),
                                               ref.any(dim=1))),
             dtau_kernel=dtau_k.tolist(), dtau_plain=dtau_p.tolist(),
-            dtau_rel_err=dtau_rel, ms=ms, plain_ms=plain_ms,
+            dtau_rel_err=dtau_rel, ms=ms, plain_ms=plain_ms, f32_ms=f32_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes > t_ops else "operations")
-        label = "B4" if tile16 else "B2"
+        label = "B4" if tile16 else ("B2-bf16" if bf16 else "B2")
         print(f"{label.lower()}-vs-plain " + json.dumps(rec), flush=True)
         if not bool(torch.isfinite(got).all()):
             fail(f"{label} {name}/{kind}: non-finite rows")
@@ -818,6 +944,82 @@ def render16_vs_32(dev, gm, cam):
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def render_bf16_path(dev, gm, cam, poses, gts):
+    """``render(bf16=True)`` with n_touched at each pose of ``poses``,
+    launch counts from 0: B1-bf16's path. Reports the PSNR of each bf16
+    render against the f32 ground truth rendered at the same pose and the
+    n_touched mismatches; fails on non-finite output, overflow, or a bf16
+    render equal to the f32 one."""
+    reset_counts()
+    bg = torch.zeros(3, device=dev)
+    psnrs, nt_diff, diff, finite, ovf = [], [], 0.0, True, 0
+    for Tp, gt in zip(poses, gts):
+        c = cam.replace(R=torch.as_tensor(Tp[:3, :3], device=dev),
+                        t=torch.as_tensor(Tp[:3, 3], device=dev))
+        out = render(gm, c, None, bg, pair_capacity=PAIR_CAP, bf16=True,
+                     device=dev)
+        with uncounted():
+            ref = render(gm, c, None, bg, pair_capacity=PAIR_CAP, device=dev)
+        img = torch.clamp(out.color, 0, 1)
+        psnrs.append(float(losses.psnr(img, gt[0])))
+        nt_diff.append(int((out.n_touched != ref.n_touched).sum()))
+        diff = max(diff, float((out.color - ref.color).abs().max()))
+        finite &= bool(torch.isfinite(out.color).all()
+                       and torch.isfinite(out.depth).all())
+        ovf = max(ovf, int(out.overflow))
+    rec = dict(path="render-bf16", renders=len(psnrs), resolution=f"{W}x{H}",
+               psnr_vs_f32=psnrs, n_touched_mismatch=nt_diff,
+               max_abs_color_diff=diff, overflow=ovf, finite=finite,
+               card=card_line())
+    print("render-bf16 " + json.dumps(rec), flush=True)
+    counts = read_counts("render-bf16", ("composite32_fwd_ntouch_bf16",),
+                         forbidden=("composite32_fwd_ntouch",))
+    if not finite or ovf:
+        fail(f"render-bf16: non-finite output or overflow {ovf}")
+    if diff <= IMG_TOL:
+        fail("render-bf16: the bf16 render equals the f32 one")
+    return counts
+
+
+def phase_kernels_bf16(dev, gm, cam, gt1):
+    """B1'-bf16, B1-bf16 (also under the blend-weight rule) and B2-bf16
+    against their plain bf16 versions, with the f32 kernel's time on the
+    same plan: the room's s=2 tracker plan (the IRLS renders under
+    kernel_bf16) and its s=1 plan with pad 2 (the exact full-resolution
+    iterations and the polish). Plain versions timed where the kernels
+    line reads them."""
+    fwd, bwd = [], []
+    for s, cap, forms in ((2, PAIR_CAP // 2, ((False, False, True),
+                                              (True, False, True),
+                                              (True, True, False))),
+                          (1, PAIR_CAP, ((False, False, False),
+                                         (True, False, False)))):
+        cam_l = tracking._cam_level(cam, s)
+        lp = (0.3 + (s * s - 1) / 12.0) / (s * s) if s > 1 else 0.3
+        prep = gmath.preprocess(
+            gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
+            cam_l.w2c(), cam_l.projection(), torch.zeros(6, device=dev),
+            cam_l.fx, cam_l.fy, cam_l.width, cam_l.height, cam_l.tanfovx,
+            cam_l.tanfovy, low_pass=lp)
+        feat, ranges, n_tx, n_ty, plan = pair_rows(
+            prep, cam_l.width, cam_l.height, cap, 1.1, 2.0)
+        for with_nt, nt_w, timed in forms:
+            fwd.append(kernel_case(f"room_s{s}_bf16", feat, ranges, n_tx,
+                                   n_ty, cam_l.width, cam_l.height, with_nt,
+                                   nt_w, time_plain=timed, bf16=True))
+    bwd += b2_case("room_s1_polish_bf16", dev,
+                   level_prep_fn(dev, gm, cam, 0.3), W, H, PAIR_CAP, 1.1,
+                   2.0, gt1, seed=6, bf16=True)
+    cam2 = tracking._cam_level(cam, 2)
+    gt2 = (tracking._pool_avg(gt1[0], 2), tracking._stride_center(gt1[1], 2),
+           tracking._pool_max(gt1[2], 2))
+    bwd += b2_case("room_s2_bf16", dev, level_prep_fn(dev, gm, cam2, 0.3),
+                   cam2.width, cam2.height, PAIR_CAP // 2, 1.1, 4.0, gt2,
+                   seed=7, time_plain=False, bf16=True)
+    return fwd, bwd
+
 
 def cv_start(R1, t1, R0, t0):
     Rd = R1 @ R0.T
@@ -1039,25 +1241,40 @@ def count_syncs(fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-WRAPPERS = {"composite32_fwd": tk.composite32_fwd,
-            "composite32_fwd_ntouch": tk.composite32_fwd_ntouch,
-            "composite32_bwd": tk.composite32_bwd,
-            "composite16_fwd": tk16.composite16_fwd,
-            "composite16_fwd_ntouch": tk16.composite16_fwd_ntouch,
-            "composite16_bwd": tk16.composite16_bwd}
+# kernel name -> (wrapper, its launch counter): the bf16 variants count in
+# their wrapper's ``launches_bf16``
+WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
+            "composite32_fwd_ntouch": (tk.composite32_fwd_ntouch,
+                                       "launches"),
+            "composite32_bwd": (tk.composite32_bwd, "launches"),
+            "composite16_fwd": (tk16.composite16_fwd, "launches"),
+            "composite16_fwd_ntouch": (tk16.composite16_fwd_ntouch,
+                                       "launches"),
+            "composite16_bwd": (tk16.composite16_bwd, "launches"),
+            "composite32_fwd_bf16": (tk.composite32_fwd, "launches_bf16"),
+            "composite32_fwd_ntouch_bf16": (tk.composite32_fwd_ntouch,
+                                            "launches_bf16"),
+            "composite32_bwd_bf16": (tk.composite32_bwd, "launches_bf16")}
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
+KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
+                "composite32_bwd_bf16")
+
+
+def count_of(name):
+    fn, attr = WRAPPERS[name]
+    return getattr(fn, attr)
 
 
 def reset_counts():
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fn, attr in WRAPPERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(path, required, forbidden=()):
     """The launch counts since reset_counts(); fails unless every kernel
     in ``required`` was launched on ``path`` and none in ``forbidden``."""
-    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts = {name: count_of(name) for name in WRAPPERS}
     print(f"{path} launches: {json.dumps(counts)}", flush=True)
     for name in required:
         if counts[name] == 0:
@@ -1073,11 +1290,11 @@ class uncounted:
     they were."""
 
     def __enter__(self):
-        self.saved = {n: fn.launches for n, fn in WRAPPERS.items()}
+        self.saved = {n: count_of(n) for n in WRAPPERS}
 
     def __exit__(self, *exc):
-        for n, fn in WRAPPERS.items():
-            fn.launches = self.saved[n]
+        for n, (fn, attr) in WRAPPERS.items():
+            setattr(fn, attr, self.saved[n])
 
 
 def check_path(name, rec, max_err_m=1e-3):
@@ -1165,6 +1382,165 @@ def main_path_full_key(dev, gm, cam, poses, main_rec):
         fail(f"main-path-full-depth-key: tile16 error {e16:.6f} m is "
              f"{rec['tile16_rel_to_tile32']:+.1%} from tile32's {e32:.6f} m")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the SLAM paths
+# ---------------------------------------------------------------------------
+
+def slam_config(**training):
+    cfg = {k: {kk: (dict(vv) if isinstance(vv, dict) else vv)
+               for kk, vv in v.items()} if isinstance(v, dict) else v
+           for k, v in SLAM_CONFIG.items()}
+    cfg["Training"].update(training)
+    cfg["Dataset"]["single_thread"] = cfg["Training"]["single_thread"]
+    return cfg
+
+
+@torch.no_grad()
+def keyframe_psnrs(slam):
+    """PSNR of each keyframe's render at its estimated pose against its
+    frame (clamped, no exposure)."""
+    out, dev = [], slam.device
+    for uid in slam.frontend.kf_indices:
+        rec = slam.frontend.frames[uid]
+        cam = slam.cam.replace(
+            R=torch.as_tensor(np.asarray(rec.R, np.float32), device=dev),
+            t=torch.as_tensor(np.asarray(rec.t, np.float32), device=dev))
+        r = render(slam.backend.gm, cam, None, slam.backend.bg,
+                   pair_capacity=slam.backend.pair_capacity,
+                   need_n_touched=False, device=slam.device)
+        gt = torch.as_tensor(slam.dataset[uid][0], device=slam.device)
+        out.append(float(losses.psnr(torch.clamp(r.color, 0, 1), gt)))
+    return out
+
+
+def run_slam(name, dev, dataset, out_root, training, required):
+    """One SLAM run through the driver (SLAM.run with the rendering eval
+    and SLAM_REFINE_ITERS of color refinement), launch counts from 0.
+    Reports the driver's FPS, per-frame track p50/max (frame_log),
+    keyframes, final ATE, keyframe PSNR before and after refinement,
+    active Gaussians and pair overflow: of the tracking plans and the
+    keyframing render of each frame's accepted track (hooks on
+    track_frame_pyr and FrontEnd.track; an overflowing track that the
+    frontend grew its capacities for and re-tracked counts as a re-track),
+    of densify, and of the final window's mapping plans."""
+    from gs_slam_analytica_jacobian_tpu_torch.slam.driver import SLAM
+    from gs_slam_analytica_jacobian_tpu_torch.utils import ply
+    save_dir = os.path.join(out_root, name)
+    os.makedirs(save_dir, exist_ok=True)
+    slam = SLAM(slam_config(**training), save_dir=save_dir, dataset=dataset,
+                device=dev)
+    track_ovf = dict(accepted=0, calls=0, last=0)
+    inner_track = tracking.track_frame_pyr
+    inner_fe_track = slam.frontend.track
+
+    def track_hook(*args, **kw):
+        res = inner_track(*args, **kw)
+        track_ovf["calls"] += 1
+        track_ovf["last"] = max(int(res[8].max()), int(res[5].overflow))
+        return res
+
+    def fe_track(idx, rec):
+        out = inner_fe_track(idx, rec)
+        track_ovf["accepted"] = max(track_ovf["accepted"], track_ovf["last"])
+        return out
+    slam.frontend.track = fe_track
+    psnr_before = []
+    inner_refine = slam.backend.color_refinement
+
+    def refine_hook(*args, **kw):
+        with uncounted():
+            psnr_before.extend(keyframe_psnrs(slam))
+        return inner_refine(*args, **kw)
+    slam.backend.color_refinement = refine_hook
+    tracking.track_frame_pyr = track_hook
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        res = slam.run(eval_rendering=True,
+                       color_refinement_iters=SLAM_REFINE_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tracking.track_frame_pyr = inner_track
+    counts = read_counts(name, required)
+    with uncounted():
+        psnr_after = keyframe_psnrs(slam)
+        be = slam.backend
+        map_ovf = window_overflow(be, be.current_window)
+    flog = slam.frontend.frame_log
+    track_ms = [1e3 * f["track"] for f in flog]
+    gm = be.gm
+    ply_path = os.path.join(save_dir, "point_cloud", "final",
+                            "point_cloud.ply")
+    ply_same = False
+    if os.path.isfile(ply_path):
+        back = ply.load_ply(ply_path, device=dev)
+        act = gm.active
+        ply_same = all(torch.equal(getattr(back, f), getattr(gm, f)[act])
+                       for f in ("xyz", "features_dc", "features_rest",
+                                 "scaling", "rotation", "opacity"))
+    densify_ovf = max([int(d["overflow"]) for d in be.densify_log] + [0])
+    rec = dict(
+        path=name, frames=SLAM_FRAMES, resolution="1216x672",
+        fps=res["fps"], wall_s=res["wall_time"], run_s=wall,
+        track_ms_p50=float(np.median(track_ms)),
+        track_ms_max=float(np.max(track_ms)), frames_tracked=len(flog),
+        n_keyframes=len(slam.frontend.kf_indices),
+        keyframe_ids=list(slam.frontend.kf_indices), ate_m=res.get("ate"),
+        kf_psnr_before_mean=float(np.mean(psnr_before)),
+        kf_psnr_after_mean=float(np.mean(psnr_after)),
+        render_psnr_before=res["rendering_before_opt"]["mean_psnr"],
+        render_psnr_after=res["rendering_after_opt"]["mean_psnr"],
+        active_gaussians=int(gm.num_active()),
+        overflow=dict(tracking=track_ovf["accepted"], densify=densify_ovf,
+                      window=map_ovf),
+        tracker_calls=track_ovf["calls"],
+        summary_written=os.path.isfile(os.path.join(save_dir,
+                                                    "run_summary.json")),
+        ply_reloads_same=ply_same, prewarm_s=slam.frontend.prewarm_wall_s,
+        refine_iters=SLAM_REFINE_ITERS, launches=counts, card=card_line())
+    print(f"{name} " + json.dumps(rec), flush=True)
+    ate, limit = rec["ate_m"], min(SLAM_ATE_MAX_M, SLAM_ATE_REG_M[name])
+    if ate is None or not np.isfinite(ate) or ate >= limit:
+        fail(f"{name}: ATE {ate} m, limit {limit} m")
+    if rec["n_keyframes"] < SLAM_MIN_KF:
+        fail(f"{name}: {rec['n_keyframes']} keyframes (< {SLAM_MIN_KF})")
+    if max(rec["overflow"].values()) > 0:
+        fail(f"{name}: pair overflow {rec['overflow']}")
+    if not (rec["summary_written"] and rec["ply_reloads_same"]):
+        fail(f"{name}: run_summary.json or the ply missing, or the ply "
+             "does not reload to the same map")
+    if rec["frames_tracked"] != SLAM_FRAMES - 1:
+        fail(f"{name}: {rec['frames_tracked']} of {SLAM_FRAMES - 1} frames "
+             "tracked")
+    return rec
+
+
+def phase_slam(dev):
+    """The three SLAM paths on one pre-rendered dataset; slam-bf16 within
+    SLAM_BF16_ATE_REL of slam's ATE."""
+    from gs_slam_analytica_jacobian_tpu_torch.utils.datasets import \
+        load_dataset
+    dataset = load_dataset(slam_config())
+    t0 = time.perf_counter()
+    for i in range(SLAM_FRAMES):
+        dataset[i]
+    print(f"slam dataset: {SLAM_FRAMES} frames of the synthetic room "
+          f"rendered on the host in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    out_root = os.path.join(ROOT, "build", "slam_runs")
+    recs, launches = {}, {}
+    for name, training, required in SLAM_RUNS:
+        recs[name] = run_slam(name, dev, dataset, out_root, training,
+                              required)
+        launches[name] = recs[name]["launches"]
+    a, b = recs["slam"]["ate_m"], recs["slam-bf16"]["ate_m"]
+    if a is not None and b is not None and b > SLAM_BF16_ATE_REL * a:
+        fail(f"slam-bf16: ATE {b:.6f} m above {SLAM_BF16_ATE_REL} x slam's "
+             f"{a:.6f} m")
+    return recs, launches
 
 
 # ---------------------------------------------------------------------------
@@ -1475,6 +1851,7 @@ def run(dev):
     gt1 = render_ground_truth(dev, gm, cam, poses[:2])[0][1]
     cases16, b4_cases = phase_kernels16(dev, gm, cam, gt1)
     render16_vs_32(dev, gm, cam)
+    cases_bf16, b2_bf16_cases = phase_kernels_bf16(dev, gm, cam, gt1)
 
     # phase 3: the main path, with launch counts from 0
     reset_counts()
@@ -1533,6 +1910,11 @@ def run(dev):
           f"{rec['pose_err_mean_m'] * 1e3:.4f}", flush=True)
     main_path_full_key(dev, gm, cam, poses, rec)
 
+    # render-bf16: the render API with bf16 (n_touched on, as a user's
+    # render call has it) at the ground-truth poses: the one path of B1-bf16
+    # (the trackers' keyframing render stays f32, as in the reference)
+    launches["render-bf16"] = render_bf16_path(dev, gm, cam, poses, gts)
+
     # phase 4: the exact-gradient paths, each with launch counts from 0
     all_kernels = KERNELS32
     reset_counts()
@@ -1567,6 +1949,36 @@ def run(dev):
     print("exact-pyramid-H-carried " + json.dumps(hc), flush=True)
     check_path("exact-pyramid-H-carried", hc, max_err_m=EXACT_H_MAX_ERR_M)
 
+    # the bf16 tracker paths: the main path's schedule and the exact
+    # pyramid with kernel_bf16, each beside its f32 run
+    for name, kw, base, limit, reps, two_sided, required, track_kw in (
+            ("main-path-bf16", BENCH_KW, rec, 1e-3, BF16_REPS, True,
+             ("composite32_fwd_bf16", "composite32_fwd_ntouch"), {}),
+            ("exact-pyramid-bf16", EXACT_KW, exa, EXACT_MAX_ERR_M, 1, False,
+             ("composite32_fwd_bf16", "composite32_bwd_bf16",
+              "composite32_fwd_ntouch"),
+             dict(carry_H=False, reuse_plans=False))):
+        reset_counts()
+        rb = run_schedule(name, dev, gm, cam, gts, poses,
+                          dict(kw, kernel_bf16=True), gt_overflow, reps=reps,
+                          **track_kw)
+        launches[name] = read_counts(name, required, forbidden=(
+            "composite32_fwd", "composite32_bwd"))
+        with uncounted():
+            again = run_schedule(f"{name}-f32-again", dev, gm, cam, gts,
+                                 poses, kw, gt_overflow, reps=reps,
+                                 **track_kw)
+        check_path(name, rb, max_err_m=limit)
+        rel = rb["pose_err_mean_m"] / base["pose_err_mean_m"] - 1.0
+        print(f"{name}: {rb['ms_per_frame']:.3f} ms/frame against "
+              f"{again['ms_per_frame']:.3f} for its f32 path run right after "
+              f"({base['ms_per_frame']:.3f} earlier); mean error "
+              f"{rb['pose_err_mean_m'] * 1e3:.4f} mm against "
+              f"{base['pose_err_mean_m'] * 1e3:.4f} ({rel:+.2%})", flush=True)
+        if rel > BF16_REL or (two_sided and rel < -BF16_REL):
+            fail(f"{name}: mean error {rel:+.2%} from the f32 path's "
+                 f"(limit {'+-' if two_sided else '+'}{BF16_REL:.0%})")
+
     # track_frame_gn must end nearer the truth than it started; Adam, which
     # runs the reference's 100 iterations, within ADAM_MAX_ERR_M
     for name, fn, iters, max_err in (
@@ -1600,7 +2012,11 @@ def run(dev):
              f"{MAP_T16_PSNR_DB}), active {dact:+.2%} (limit "
              f"{MAP_T16_ACTIVE_REL:.0%})")
 
-    # phase 6: the kernels line. Launches: summed over the paths' runs.
+    # phase 6: the SLAM paths, each with launch counts from 0
+    slam_recs, slam_launches = phase_slam(dev)
+    launches.update(slam_launches)
+
+    # phase 7: the kernels line. Launches: summed over the paths' runs.
     # Times: the 32x32 forward kernels at the shape the main path runs
     # most (the s=2 level: every fine IRLS render and the keyframing
     # render), B2 at the polish_frame shape (s=1) under the loss
@@ -1655,6 +2071,32 @@ def run(dev):
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
         bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+    # the bf16 variants at the s=2 tracker plan (forward) and the s=1
+    # exact plan (backward, loss cotangent), the f32 kernel's time on the
+    # same plan beside each; their bound is the f32 kernels' operation
+    # count (scalar bfloat16 arithmetic, no bf16x2 packing)
+    for name, with_nt, line in (("composite32_fwd_bf16", False, 662),
+                                ("composite32_fwd_ntouch_bf16", True, 642)):
+        c = next(c for c in cases_bf16 if c["case"] == "room_s2_bf16"
+                 and c["with_ntouch"] == with_nt and not c["nt_weight"])
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "tile_kernel2_fwd.cu",
+            replaces=f"{pallas}:{line} (bf16=True, _chunk_terms :160-175)",
+            launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
+            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
+            shape=c["shape"]))
+    c = next(c for c in b2_bf16_cases if c["case"] == "room_s1_polish_bf16"
+             and c["cotangent"] == "loss")
+    kernels.append(dict(
+        name="composite32_bwd_bf16", route="cuda",
+        source=csrc + "tile_kernel2_bwd.cu",
+        replaces=f"{pallas}:699 (bf16=True, :488-508)",
+        launches=total["composite32_bwd_bf16"], max_abs_err=c["max_abs_err"],
+        max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
+        plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+        bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
+        shape=c["shape"]))
     print(f"launches by path: {json.dumps(launches)}", flush=True)
     check_failures()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,8 +41,18 @@
 // reduction, not the cell arithmetic, is the first lever for a faster
 // version. Built with -fmad=false, like the forward, so the recomputed
 // walk rounds exactly as the plain PyTorch version's.
+//
+// The bf16 variant (C entry composite32_bwd_bf16) replaces the same call
+// site with bf16=True (tile_kernel2.py:488-508): the walk recomputes the
+// bfloat16 falloff of the forward's bf16 variant, and the five
+// quadratic-form products are formed in bfloat16 from G, dx, dy and dL/dG
+// rounded to bfloat16 (bf16_falloff.cuh), each widened to f32 before its
+// pixel sum; d_opa, d_rgb and d_depth stay f32. Its bound is counted as
+// the f32 kernel's (no bf16x2 packing; the conversions add operations).
 
 #include <cuda_runtime.h>
+
+#include "bf16_falloff.cuh"
 
 namespace {
 
@@ -64,6 +74,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool kBF16>
 __global__ void __launch_bounds__(kThreads)
 composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
                        const int2* __restrict__ ranges,   // (n_tiles,)
@@ -132,12 +143,17 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
         const float4 f3 = s_feat[k][3];  // rect x1, rect y1, pad, pad
         const float dx = f0.x - px;
         const float dy = f0.y - py;
-        const float power =
-            -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
+        float power;
+        if constexpr (kBF16) {
+          power = bf16_falloff::power(dx, dy, f0.z, f0.w, f1.x);
+        } else {
+          power = -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
+        }
         const bool rect_ok = (t16x >= f2.z) && (t16x < f3.x) &&
                              (t16y >= f2.w) && (t16y < f3.y);
         if (rect_ok && power <= 0.0f) {
-          const float a_un = f1.y * expf(power);
+          const float a_un = kBF16 ? bf16_falloff::a_un(f1.y, power)
+                                   : f1.y * expf(power);
           const float alpha = fminf(kAlphaMax, a_un);
           if (alpha >= kAlphaMin) {
             const float T_incl = T * (1.0f - alpha);
@@ -153,15 +169,20 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
               const float dLda = A * T - inv_om * (c0 - pA);
               const float G = a_un / fmaxf(f1.y, 1e-12f);
               const float dLdG = f1.y * dLda;
-              const float gdx = G * dx;
-              const float gdy = G * dy;
-              const float dG_ddx = -gdx * f0.z - gdy * f0.w;
-              const float dG_ddy = -gdy * f1.x - gdx * f0.w;
-              v[0] = dLdG * dG_ddx;
-              v[1] = dLdG * dG_ddy;
-              v[2] = dLdG * (-0.5f * gdx * dx);
-              v[3] = dLdG * (-gdx * dy);
-              v[4] = dLdG * (-0.5f * gdy * dy);
+              if constexpr (kBF16) {
+                bf16_falloff::quad_grads(G, dx, dy, dLdG, f0.z, f0.w, f1.x,
+                                         v);
+              } else {
+                const float gdx = G * dx;
+                const float gdy = G * dy;
+                const float dG_ddx = -gdx * f0.z - gdy * f0.w;
+                const float dG_ddy = -gdy * f1.x - gdx * f0.w;
+                v[0] = dLdG * dG_ddx;
+                v[1] = dLdG * dG_ddy;
+                v[2] = dLdG * (-0.5f * gdx * dx);
+                v[3] = dLdG * (-gdx * dy);
+                v[4] = dLdG * (-0.5f * gdy * dy);
+              }
               v[5] = G * dLda;
               v[6] = w * dCr;
               v[7] = w * dCg;
@@ -195,26 +216,46 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
   }
 }
 
-}  // namespace
-
-// C entry, loaded with ctypes. feat: (B_al, 16) f32, 16-byte aligned;
-// ranges: (n_tiles, 2) int32; color, d_color: (3, H, W) f32; depth,
-// final_T, d_depth, d_T: (H, W) f32; dfeat: (B_al, 16) f32, zero-filled by
-// the caller (rows a tile never reaches must read 0). Launches on
-// ``stream`` and returns cudaGetLastError().
-extern "C" int composite32_bwd(const void* feat, const void* ranges,
-                               const void* color, const void* depth,
-                               const void* final_T, const void* d_color,
-                               const void* d_depth, const void* d_T,
-                               void* dfeat, int n_tiles, int n_tx, int W,
-                               int H, void* stream) {
+template <bool kBF16>
+int launch(const void* feat, const void* ranges, const void* color,
+           const void* depth, const void* final_T, const void* d_color,
+           const void* d_depth, const void* d_T, void* dfeat, int n_tiles,
+           int n_tx, int W, int H, void* stream) {
   if (n_tiles <= 0) return 0;
-  composite32_bwd_kernel<<<n_tiles, kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  composite32_bwd_kernel<kBF16><<<n_tiles, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(feat), static_cast<const int2*>(ranges),
       static_cast<const float*>(color), static_cast<const float*>(depth),
       static_cast<const float*>(final_T), static_cast<const float*>(d_color),
       static_cast<const float*>(d_depth), static_cast<const float*>(d_T),
       static_cast<float*>(dfeat), W, H, n_tx);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entries, loaded with ctypes: composite32_bwd (f32) and
+// composite32_bwd_bf16 (the bfloat16 bodies). feat: (B_al, 16) f32,
+// 16-byte aligned; ranges: (n_tiles, 2) int32; color, d_color: (3, H, W)
+// f32; depth, final_T, d_depth, d_T: (H, W) f32; dfeat: (B_al, 16) f32,
+// zero-filled by the caller (rows a tile never reaches must read 0).
+// Launch on ``stream`` and return cudaGetLastError().
+extern "C" int composite32_bwd(const void* feat, const void* ranges,
+                               const void* color, const void* depth,
+                               const void* final_T, const void* d_color,
+                               const void* d_depth, const void* d_T,
+                               void* dfeat, int n_tiles, int n_tx, int W,
+                               int H, void* stream) {
+  return launch<false>(feat, ranges, color, depth, final_T, d_color,
+                       d_depth, d_T, dfeat, n_tiles, n_tx, W, H, stream);
+}
+
+extern "C" int composite32_bwd_bf16(const void* feat, const void* ranges,
+                                    const void* color, const void* depth,
+                                    const void* final_T, const void* d_color,
+                                    const void* d_depth, const void* d_T,
+                                    void* dfeat, int n_tiles, int n_tx,
+                                    int W, int H, void* stream) {
+  return launch<true>(feat, ranges, color, depth, final_T, d_color, d_depth,
+                      d_T, dfeat, n_tiles, n_tx, W, H, stream);
 }

@@ -33,8 +33,19 @@
 // directly in (C, H, W) planes. Built with -fmad=false: every multiply
 // and add rounds as in the plain PyTorch version, so the alpha and
 // transmittance thresholds decide alike in both.
+//
+// The bf16 variant (C entry composite32_fwd_bf16) replaces the same two
+// call sites with bf16=True: the falloff of _chunk_terms' bf16 branch
+// (tile_kernel2.py:160-175), power and opa exp(power) in bfloat16 from f32
+// deltas (bf16_falloff.cuh), widened to f32 before the 0.99 cap and the
+// skip tests; transmittance, the 1e-4 stop and the sums stay f32. Its
+// bound is the f32 kernel's: scalar bfloat16 arithmetic runs at no more
+// than the FP32 rate on the CUDA cores (nothing here packs bf16x2), and
+// the conversions add operations, so it is not expected to be faster.
 
 #include <cuda_runtime.h>
+
+#include "bf16_falloff.cuh"
 
 namespace {
 
@@ -46,7 +57,7 @@ constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 
-template <bool kNTouch, bool kNtWeight>
+template <bool kNTouch, bool kNtWeight, bool kBF16>
 __global__ void __launch_bounds__(kThreads)
 composite32_fwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
                        const int2* __restrict__ ranges,   // (n_tiles,)
@@ -93,12 +104,18 @@ composite32_fwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
         const float4 f3 = s_feat[k][3];  // rect x1, rect y1, pad, pad
         const float dx = f0.x - px;
         const float dy = f0.y - py;
-        const float power =
-            -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
+        float power;
+        if constexpr (kBF16) {
+          power = bf16_falloff::power(dx, dy, f0.z, f0.w, f1.x);
+        } else {
+          power = -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
+        }
         const bool rect_ok = (t16x >= f2.z) && (t16x < f3.x) &&
                              (t16y >= f2.w) && (t16y < f3.y);
         if (rect_ok && power <= 0.0f) {
-          const float alpha = fminf(kAlphaMax, f1.y * expf(power));
+          const float a_un = kBF16 ? bf16_falloff::a_un(f1.y, power)
+                                   : f1.y * expf(power);
+          const float alpha = fminf(kAlphaMax, a_un);
           if (alpha >= kAlphaMin) {
             const float T_incl = T * (1.0f - alpha);
             if (T_incl < kTEps) {
@@ -146,16 +163,10 @@ composite32_fwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
   }
 }
 
-}  // namespace
-
-// C entry, loaded with ctypes. feat: (B_al, 16) f32, 16-byte aligned;
-// ranges: (n_tiles, 2) int32; out: (5, H, W) f32; ntouch: (B_al,) f32,
-// zero-filled by the caller (pairs a tile never reaches must read 0).
-// Launches on ``stream`` and returns cudaGetLastError().
-extern "C" int composite32_fwd(const void* feat, const void* ranges,
-                               void* out, void* ntouch, int n_tiles,
-                               int n_tx, int W, int H, int with_ntouch,
-                               int nt_weight, void* stream) {
+template <bool kBF16>
+int launch(const void* feat, const void* ranges, void* out, void* ntouch,
+           int n_tiles, int n_tx, int W, int H, int with_ntouch,
+           int nt_weight, void* stream) {
   if (n_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* f4 = static_cast<const float4*>(feat);
@@ -165,14 +176,38 @@ extern "C" int composite32_fwd(const void* feat, const void* ranges,
   const dim3 grid(n_tiles);
   const dim3 block(kThreads);
   if (!with_ntouch) {
-    composite32_fwd_kernel<false, false><<<grid, block, 0, s>>>(
+    composite32_fwd_kernel<false, false, kBF16><<<grid, block, 0, s>>>(
         f4, r2, o, nt, W, H, n_tx);
   } else if (nt_weight) {
-    composite32_fwd_kernel<true, true><<<grid, block, 0, s>>>(
+    composite32_fwd_kernel<true, true, kBF16><<<grid, block, 0, s>>>(
         f4, r2, o, nt, W, H, n_tx);
   } else {
-    composite32_fwd_kernel<true, false><<<grid, block, 0, s>>>(
+    composite32_fwd_kernel<true, false, kBF16><<<grid, block, 0, s>>>(
         f4, r2, o, nt, W, H, n_tx);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C entries, loaded with ctypes: composite32_fwd (f32) and
+// composite32_fwd_bf16 (the bfloat16 falloff). feat: (B_al, 16) f32,
+// 16-byte aligned; ranges: (n_tiles, 2) int32; out: (5, H, W) f32;
+// ntouch: (B_al,) f32, zero-filled by the caller (pairs a tile never
+// reaches must read 0). Launch on ``stream`` and return
+// cudaGetLastError().
+extern "C" int composite32_fwd(const void* feat, const void* ranges,
+                               void* out, void* ntouch, int n_tiles,
+                               int n_tx, int W, int H, int with_ntouch,
+                               int nt_weight, void* stream) {
+  return launch<false>(feat, ranges, out, ntouch, n_tiles, n_tx, W, H,
+                       with_ntouch, nt_weight, stream);
+}
+
+extern "C" int composite32_fwd_bf16(const void* feat, const void* ranges,
+                                    void* out, void* ntouch, int n_tiles,
+                                    int n_tx, int W, int H, int with_ntouch,
+                                    int nt_weight, void* stream) {
+  return launch<true>(feat, ranges, out, ntouch, n_tiles, n_tx, W, H,
+                      with_ntouch, nt_weight, stream);
 }

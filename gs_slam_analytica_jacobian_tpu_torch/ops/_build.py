@@ -31,20 +31,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# kernel library name -> (source file, C entry, argtypes)
+# kernel library name -> (source file, {C entry: argtypes}); a source may
+# export several entries (the bf16 variants beside the f32 kernels)
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_FWD_ARGS = [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
+_BWD_ARGS = [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]
 LIBRARIES = {
-    "tile_kernel2_fwd": ("tile_kernel2_fwd.cu", "composite32_fwd",
-                         [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                          _INT, _VP]),
-    "tile_kernel2_bwd": ("tile_kernel2_bwd.cu", "composite32_bwd",
-                         [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]),
-    "tile_kernel16_fwd": ("tile_kernel16_fwd.cu", "composite16_fwd",
-                          [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                           _INT, _VP]),
-    "tile_kernel16_bwd": ("tile_kernel16_bwd.cu", "composite16_bwd",
-                          [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]),
+    "tile_kernel2_fwd": ("tile_kernel2_fwd.cu",
+                         {"composite32_fwd": _FWD_ARGS,
+                          "composite32_fwd_bf16": _FWD_ARGS}),
+    "tile_kernel2_bwd": ("tile_kernel2_bwd.cu",
+                         {"composite32_bwd": _BWD_ARGS,
+                          "composite32_bwd_bf16": _BWD_ARGS}),
+    "tile_kernel16_fwd": ("tile_kernel16_fwd.cu",
+                          {"composite16_fwd": _FWD_ARGS}),
+    "tile_kernel16_bwd": ("tile_kernel16_bwd.cu",
+                          {"composite16_bwd": _BWD_ARGS}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -61,7 +64,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by its source, the headers in csrc/ (a
+    source may include any of them) and the flags."""
     src = (CSRC / LIBRARIES[name][0]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
@@ -97,16 +104,24 @@ def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed, with the
+    argtypes and restype of every C entry it exports set."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        _, entry, argtypes = LIBRARIES[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for c_entry, argtypes in LIBRARIES[name][1].items():
+            fn = getattr(lib, c_entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def entry(name: str, fn: str):
+    """The C entry ``fn`` of library ``name`` (loaded, built if needed)."""
+    if fn not in LIBRARIES[name][1]:
+        raise KeyError(f"library {name} exports no entry {fn}")
+    return getattr(load(name), fn)

@@ -12,10 +12,10 @@ On CUDA tensors the compositing runs the hand-written kernels; on CPU
 tensors their plain PyTorch versions. ``ops/renderer_ref.py`` is the
 oracle it is tested against.
 
-Flags of the reference that are not ported yet — ``bf16`` and ``mxu``
-(kernel variants) — raise NotImplementedError instead of being ignored,
-and so does either of them beside ``tile16`` (the reference's tile16
-branch silently drops them).
+``bf16`` runs the 32x32 kernels' bfloat16 bodies (forward and backward).
+``mxu``, not ported yet, raises NotImplementedError instead of being
+ignored, and so does ``bf16`` beside ``tile16`` (the reference's tile16
+branch silently drops both flags).
 """
 
 from __future__ import annotations
@@ -33,12 +33,15 @@ from .tile_kernel2 import TPX, TPY, K, composite32, grid_dims
 from .tile_kernel16 import TS, K16, composite16, grid_dims16
 
 
-def _not_ported(**flags):
-    for name, on in flags.items():
-        if on:
-            raise NotImplementedError(
-                f"{name}=True is not ported yet: the bf16/MXU kernel "
-                "variants come in a later slice of the port")
+def _not_ported(mxu: bool, bf16: bool, tile16: bool):
+    if mxu:
+        raise NotImplementedError(
+            "mxu=True is not ported yet: the MXU kernel variants come in a "
+            "later slice of the port")
+    if bf16 and tile16:
+        raise NotImplementedError(
+            "bf16=True beside tile16=True: the 16x16 kernels have no "
+            "bfloat16 bodies (the reference's tile16 branch drops the flag)")
 
 
 def pack_table(prep: Preprocessed) -> torch.Tensor:
@@ -117,7 +120,7 @@ def render(
     screen-space mean gradient densification reads). ``device=None``
     means CUDA (raises without a GPU); every tensor argument must already
     lie on that device."""
-    _not_ported(bf16=bf16, mxu=mxu)
+    _not_ported(mxu=mxu, bf16=bf16, tile16=tile16)
     dev = resolve_device(device)
     require_on(dev, means3d=means3d, cov6=cov6, opacities=opacities,
                shs=shs, w2c=w2c, proj=proj, tau=tau, bg=bg, active=active,
@@ -144,7 +147,7 @@ def render(
     else:
         n_tx, n_ty = grid_dims(width, height)
         out = composite32(feat, plan.ranges, n_tx, n_ty, width, height,
-                          need_n_touched, nt_weight)
+                          need_n_touched, nt_weight, bf16)
 
     color = out.color_sum + out.final_T[None] * bg[:, None, None]
     opacity = 1.0 - out.final_T

@@ -69,7 +69,7 @@ def composite16_fwd(feat: torch.Tensor, ranges: torch.Tensor, n_gx: int,
         return composite16_plain(feat, ranges, n_gx, n_gy, W, H,
                                  with_ntouch=False)
     out = launch_fwd("tile_kernel16_fwd", feat, ranges, 2 * n_gx, 2 * n_gy,
-                     W, H, False, False)
+                     W, H, False, False, "composite16_fwd")
     composite16_fwd.launches += 1
     return out
 
@@ -87,7 +87,7 @@ def composite16_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
         return composite16_plain(feat, ranges, n_gx, n_gy, W, H,
                                  with_ntouch=True, nt_weight=nt_weight)
     out = launch_fwd("tile_kernel16_fwd", feat, ranges, 2 * n_gx, 2 * n_gy,
-                     W, H, True, nt_weight)
+                     W, H, True, nt_weight, "composite16_fwd")
     composite16_fwd_ntouch.launches += 1
     return out
 
@@ -111,7 +111,7 @@ def composite16_bwd(feat: torch.Tensor, ranges: torch.Tensor,
                                      n_gy, W, H)
     dfeat = launch_bwd("tile_kernel16_bwd", feat, ranges, color_sum,
                        depth_sum, final_T, d_color, d_depth, d_T, 2 * n_gx,
-                       2 * n_gy, W, H)
+                       2 * n_gy, W, H, "composite16_bwd")
     composite16_bwd.launches += 1
     return dfeat
 

@@ -18,6 +18,20 @@ pallas_call at :699): per-pair gradient rows
 ``[d_mx, d_my, d_ca, d_cb, d_cc, d_opa, d_rgb(3), d_depth, 0 x 6]`` from
 the cotangents of color, depth and final T.
 
+Each wrapper takes ``bf16``: the reference's bfloat16 bodies of the same
+three call sites (``_chunk_terms(bf16=True)``, tile_kernel2.py:160-175,
+and the backward's bf16 branch, :488-508), which the trackers run under
+``kernel_bf16``. The falloff is evaluated in bfloat16 from f32 pixel
+deltas, every product and sum rounded to bfloat16 in the expression's
+order, the power clamped to <= 0, ``opa * exp(power)`` rounded once more
+and widened; transmittance and the sums stay f32. The backward rounds G,
+dx, dy and dL/dG to bfloat16 and forms the quadratic-form products in
+bfloat16, each widened before its f32 pixel sum. The bf16 kernels are
+separate C entries of the same sources with launch counters of their own
+(``launches_bf16``); the plain versions take ``bf16`` too and round
+exactly where the kernels do (torch rounds after every bfloat16 operation,
+as ``__hmul_rn``/``__hadd_rn``/``__hsub_rn`` do).
+
 What bounds each kernel on the H100 and what its design does about it is
 noted in its CUDA source. Each wrapper checks device, dtype, shape and
 contiguity, launches on the current stream and counts its launches in
@@ -38,6 +52,7 @@ block-permuted layout and ``assemble_image`` do not exist here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -80,9 +95,27 @@ def _tile_pixels(n_tx: int, n_ty: int, W: int, H: int, dev, tile: int):
         torch.floor(py / 16.0)
 
 
+def _falloff(ca, cb, cc, opa, dx, dy, bf16: bool):
+    """(power, a_un = opa exp(power)) in f32. Under ``bf16`` the reference's
+    bfloat16 body: dx, dy and the conic rounded to bfloat16, every product
+    and sum rounded in the expression's order, the power clamped to <= 0
+    (bfloat16 cancellation can round a tiny negative power positive),
+    opa exp(power) rounded once more, both widened to f32."""
+    if not bf16:
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        return power, opa * torch.exp(power)
+    b = torch.bfloat16
+    dxb, dyb = dx.to(b), dy.to(b)
+    power = (-0.5 * (ca.to(b) * dxb * dxb + cc.to(b) * dyb * dyb)
+             - cb.to(b) * dxb * dyb)
+    power = torch.clamp(power, max=0.0)
+    a_un = opa.to(b) * torch.exp(power)
+    return power.float(), a_un.float()
+
+
 def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                n_ty: int, W: int, H: int, with_ntouch: bool = True,
-               nt_weight: bool = False, tile: int = TPX
+               nt_weight: bool = False, tile: int = TPX, bf16: bool = False
                ) -> Tuple[Composite2Out, torch.Tensor]:
     """Plain PyTorch compositing over square tiles of edge ``tile`` (32 for
     B1, 16 for B3) on an n_tx x n_ty grid. Returns (outputs, pairs_walked)
@@ -130,8 +163,8 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
         opa = f[..., 5:6]
         dx = mx - px_s
         dy = my - py_s
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.clamp(opa * torch.exp(power), max=ALPHA_MAX)
+        power, a_un = _falloff(ca, cb, cc, opa, dx, dy, bf16)
+        alpha = torch.clamp(a_un, max=ALPHA_MAX)
         t16x_s, t16y_s = t16x[sel][:, None], t16y[sel][:, None]
         rect_ok = ((t16x_s >= f[..., 10:11]) & (t16x_s < f[..., 12:13])
                    & (t16y_s >= f[..., 11:12]) & (t16y_s < f[..., 13:14]))
@@ -169,10 +202,10 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
 
 
 def composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch=True,
-                      nt_weight=False) -> Composite2Out:
+                      nt_weight=False, bf16=False) -> Composite2Out:
     """Plain PyTorch version of the kernel (same function, any device)."""
     return plain_walk(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
-                      nt_weight)[0]
+                      nt_weight, bf16=bf16)[0]
 
 
 def _check(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int, n_ty: int):
@@ -192,12 +225,13 @@ def _check(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int, n_ty: int):
 
 
 def launch_fwd(lib: str, feat, ranges, n_tx, n_ty, W, H, with_ntouch,
-               nt_weight) -> Composite2Out:
-    """Launch the forward kernel of library ``lib`` (whose C entry has the
-    signature of ``composite32_fwd``) over an n_tx x n_ty tile grid."""
+               nt_weight, entry: str) -> Composite2Out:
+    """Launch the forward kernel ``entry`` of library ``lib`` (a C entry
+    with the signature of ``composite32_fwd``) over an n_tx x n_ty tile
+    grid."""
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned for float4 loads")
-    fn = getattr(_build.load(lib), _build.LIBRARIES[lib][1])
+    fn = _build.entry(lib, entry)
     dev = feat.device
     out = torch.empty(5, H, W, dtype=torch.float32, device=dev)
     # pairs a tile never reaches (early exit, aligned gaps) must read 0;
@@ -217,39 +251,54 @@ def launch_fwd(lib: str, feat, ranges, n_tx, n_ty, W, H, with_ntouch,
                          final_T=out[4], n_touched_pairs=ntouch)
 
 
+def _count(wrapper, bf16: bool):
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def composite32_fwd(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
-                    n_ty: int, W: int, H: int) -> Composite2Out:
-    """Forward compositing without per-pair n_touched (zeros)."""
+                    n_ty: int, W: int, H: int, bf16: bool = False
+                    ) -> Composite2Out:
+    """Forward compositing without per-pair n_touched (zeros); the
+    bfloat16 falloff under ``bf16``."""
     _check(feat, ranges, n_tx, n_ty)
     if feat.device.type == "cpu":
         return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
-                                 with_ntouch=False)
+                                 with_ntouch=False, bf16=bf16)
     out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
-                     False, False)
-    composite32_fwd.launches += 1
+                     False, False,
+                     "composite32_fwd_bf16" if bf16 else "composite32_fwd")
+    _count(composite32_fwd, bf16)
     return out
 
 
 composite32_fwd.launches = 0
+composite32_fwd.launches_bf16 = 0
 
 
 def composite32_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
                            n_tx: int, n_ty: int, W: int, H: int,
-                           nt_weight: bool = False) -> Composite2Out:
+                           nt_weight: bool = False, bf16: bool = False
+                           ) -> Composite2Out:
     """Forward compositing with per-pair n_touched: pixels where the pair
     was included and T_incl > 0.5, or alpha*T >= 1/255 under
-    ``nt_weight``."""
+    ``nt_weight``; the bfloat16 falloff under ``bf16``."""
     _check(feat, ranges, n_tx, n_ty)
     if feat.device.type == "cpu":
         return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
-                                 with_ntouch=True, nt_weight=nt_weight)
+                                 with_ntouch=True, nt_weight=nt_weight,
+                                 bf16=bf16)
     out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
-                     True, nt_weight)
-    composite32_fwd_ntouch.launches += 1
+                     True, nt_weight,
+                     "composite32_fwd_bf16" if bf16 else "composite32_fwd")
+    _count(composite32_fwd_ntouch, bf16)
     return out
 
 
 composite32_fwd_ntouch.launches = 0
+composite32_fwd_ntouch.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +320,7 @@ def _to_tiles(img: torch.Tensor, n_tx: int, n_ty: int, tile: int
 
 def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
                    d_depth, d_T, n_tx: int, n_ty: int, W: int, H: int,
-                   tile: int = TPX
+                   tile: int = TPX, bf16: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward of the compositing over square tiles of edge
     ``tile`` (32 for B2, 16 for B4). Returns (dfeat (B_al, 16),
@@ -289,7 +338,9 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
     d_opa = sum G dL/dalpha, then the five quadratic-form rows and
     d_rgb, d_depth = sum w dC, dD. Rows of dead slots, skipped pairs and
     pairs after the tile's early exit are exactly zero; columns 10-15 are
-    zero."""
+    zero. Under ``bf16`` the falloff is ``_falloff``'s bfloat16 body and
+    the five quadratic-form products are formed in bfloat16 from G, dx,
+    dy and dL/dG rounded to bfloat16, each widened before its sum."""
     dev = feat.device
     f32 = torch.float32
     chunk = PLAIN_CHUNK
@@ -334,8 +385,7 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
         opa = f[..., 5:6]
         dx = mx - px_s
         dy = my - py_s
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        a_un = opa * torch.exp(power)
+        power, a_un = _falloff(ca, cb, cc, opa, dx, dy, bf16)
         alpha = torch.clamp(a_un, max=ALPHA_MAX)
         t16x_s, t16y_s = t16x[sel][:, None], t16y[sel][:, None]
         rect_ok = ((t16x_s >= f[..., 10:11]) & (t16x_s < f[..., 12:13])
@@ -366,13 +416,22 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
             # masked: where power > 0 the falloff may overflow to inf
             G = torch.where(inc, G_all[:, k], zero)
             dLdG = fk[:, 5:6] * dLda
-            gdx = G * dx[:, k]
-            gdy = G * dy[:, k]
-            dG_ddx = -gdx * fk[:, 2:3] - gdy * fk[:, 3:4]
-            dG_ddy = -gdy * fk[:, 4:5] - gdx * fk[:, 3:4]
-            vals = torch.stack([
-                dLdG * dG_ddx, dLdG * dG_ddy, dLdG * (-0.5 * gdx * dx[:, k]),
-                dLdG * (-gdx * dy[:, k]), dLdG * (-0.5 * gdy * dy[:, k]),
+            conic = fk[:, 2:5]
+            dxk, dyk = dx[:, k], dy[:, k]
+            if bf16:
+                b = torch.bfloat16
+                G_, dLdG, conic = G.to(b), dLdG.to(b), conic.to(b)
+                dxk, dyk = dxk.to(b), dyk.to(b)
+            else:
+                G_ = G
+            ca, cb, cc = conic[:, 0:1], conic[:, 1:2], conic[:, 2:3]
+            gdx = G_ * dxk
+            gdy = G_ * dyk
+            dG_ddx = -gdx * ca - gdy * cb
+            dG_ddy = -gdy * cc - gdx * cb
+            quad = [dLdG * dG_ddx, dLdG * dG_ddy, dLdG * (-0.5 * gdx * dxk),
+                    dLdG * (-gdx * dyk), dLdG * (-0.5 * gdy * dyk)]
+            vals = torch.stack([q.float() for q in quad] + [
                 G * dLda, w * cot_s[:, 0], w * cot_s[:, 1],
                 w * cot_s[:, 2], w * cot_s[:, 3]], dim=1)      # (S, 10, P)
             acc[:, k] = vals.sum(dim=-1)
@@ -384,11 +443,12 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
 
 
 def composite32_bwd_plain(feat, ranges, color_sum, depth_sum, final_T,
-                          d_color, d_depth, d_T, n_tx, n_ty, W, H
-                          ) -> torch.Tensor:
+                          d_color, d_depth, d_T, n_tx, n_ty, W, H,
+                          bf16=False) -> torch.Tensor:
     """Plain PyTorch version of the backward kernel (any device)."""
     return plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T,
-                          d_color, d_depth, d_T, n_tx, n_ty, W, H)[0]
+                          d_color, d_depth, d_T, n_tx, n_ty, W, H,
+                          bf16=bf16)[0]
 
 
 def _check_planes(feat: torch.Tensor, W: int, H: int, **planes):
@@ -406,32 +466,36 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
                     color_sum: torch.Tensor, depth_sum: torch.Tensor,
                     final_T: torch.Tensor, d_color: torch.Tensor,
                     d_depth: torch.Tensor, d_T: torch.Tensor, n_tx: int,
-                    n_ty: int, W: int, H: int) -> torch.Tensor:
+                    n_ty: int, W: int, H: int, bf16: bool = False
+                    ) -> torch.Tensor:
     """Per-pair gradient rows (B_al, 16) from the forward's planes
     (color_sum (3,H,W) before background, depth_sum, final_T) and their
-    cotangents. Rows the kernel never writes keep the zero they were
-    allocated with."""
+    cotangents; the bfloat16 bodies under ``bf16``. Rows the kernel never
+    writes keep the zero they were allocated with."""
     _check(feat, ranges, n_tx, n_ty)
     _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
                   final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
     if feat.device.type == "cpu":
         return composite32_bwd_plain(feat, ranges, color_sum, depth_sum,
                                      final_T, d_color, d_depth, d_T, n_tx,
-                                     n_ty, W, H)
+                                     n_ty, W, H, bf16=bf16)
     dfeat = launch_bwd("tile_kernel2_bwd", feat, ranges, color_sum,
                        depth_sum, final_T, d_color, d_depth, d_T, n_tx, n_ty,
-                       W, H)
-    composite32_bwd.launches += 1
+                       W, H,
+                       "composite32_bwd_bf16" if bf16 else "composite32_bwd")
+    _count(composite32_bwd, bf16)
     return dfeat
 
 
 def launch_bwd(lib: str, feat, ranges, color_sum, depth_sum, final_T,
-               d_color, d_depth, d_T, n_tx, n_ty, W, H) -> torch.Tensor:
-    """Launch the backward kernel of library ``lib`` (whose C entry has the
-    signature of ``composite32_bwd``) over an n_tx x n_ty tile grid."""
+               d_color, d_depth, d_T, n_tx, n_ty, W, H,
+               entry: str) -> torch.Tensor:
+    """Launch the backward kernel ``entry`` of library ``lib`` (a C entry
+    with the signature of ``composite32_bwd``) over an n_tx x n_ty tile
+    grid."""
     if feat.data_ptr() % 16:
         raise ValueError("feat must be 16-byte aligned for float4 loads")
-    fn = getattr(_build.load(lib), _build.LIBRARIES[lib][1])
+    fn = _build.entry(lib, entry)
     dfeat = torch.zeros(feat.shape[0], FEAT_DIM, dtype=torch.float32,
                         device=feat.device)
     planes = [x.contiguous() for x in (color_sum, depth_sum, final_T,
@@ -449,6 +513,7 @@ def launch_bwd(lib: str, feat, ranges, color_sum, depth_sum, final_T,
 
 
 composite32_bwd.launches = 0
+composite32_bwd.launches_bf16 = 0
 
 
 class CompositeFn(torch.autograd.Function):
@@ -486,9 +551,12 @@ class CompositeFn(torch.autograd.Function):
 
 
 def composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch=True,
-                nt_weight=False) -> Composite2Out:
+                nt_weight=False, bf16=False) -> Composite2Out:
     """Differentiable 32x32 compositing (the reference's ``composite32``).
-    ``with_ntouch=False`` returns zero n_touched."""
+    ``with_ntouch=False`` returns zero n_touched; ``bf16`` selects the
+    bfloat16 bodies for the forward and its backward."""
+    kernels = (composite32_fwd, composite32_fwd_ntouch, composite32_bwd)
+    if bf16:
+        kernels = tuple(functools.partial(k, bf16=True) for k in kernels)
     return Composite2Out(*CompositeFn.apply(
-        feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight,
-        (composite32_fwd, composite32_fwd_ntouch, composite32_bwd)))
+        feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight, kernels))

@@ -4,8 +4,8 @@ schedule, map initialization, covisibility pruning and color refinement,
 around ``mapping.mapping_steps``.
 
 The config is a dict with the layout of the reference's YAML configs
-(``Training``, ``Dataset``, ``opt_params``, ``model_params``); the port
-has no YAML loader. Random draws come from a ``torch.Generator`` on the
+(``Training``, ``Dataset``, ``opt_params``, ``model_params``; read one
+with utils/config.py). Random draws come from a ``torch.Generator`` on the
 device (seeding keep masks, split noise) and, as in the reference, a
 ``random.Random`` for the random past keyframes, both seeded by
 ``config["seed"]`` (default 0). Map iterations run in power-of-2 batches
@@ -71,6 +71,13 @@ class BackEnd:
         self.alpha = T.get("alpha", 0.95)
         self.single_thread = config["Dataset"].get("single_thread", False)
         self.prune_mode = T.get("prune_mode", "slam")
+        # the threaded pipeline's idle-refinement batch and frontend
+        # priority (parallel/pipeline.py), and whether the driver builds
+        # the kernels right after map init (prewarm_mapping)
+        self.idle_batch = int(T.get("idle_batch", 4))
+        self.frontend_priority = bool(T.get("frontend_priority", True))
+        self.prewarm = bool(T.get("prewarm_mapping", False))
+        self.prewarm_wall_s = 0.0     # run-summary itemization
         self.kf_capacity = T.get("kf_capacity", 128)
         self.use_oracle = T.get("renderer", "tiled") == "oracle"
         self.tile16 = bool(T.get("tile16", False))
@@ -95,6 +102,7 @@ class BackEnd:
         self.current_window: List[int] = []   # frame uids, newest first
         self.occ_aware_visibility: Dict[int, torch.Tensor] = {}
         self.iteration_count = 0
+        self.last_sent = 0     # iterations since the last sync to tracking
         self.initialized = not self.monocular
         self.pose_adam = PoseAdamState.zero(self.F, device=dev)
         seed = config.get("seed", 0)
@@ -291,6 +299,7 @@ class BackEnd:
             used = T if plans_in is None else self._plan_cache[2] + T
             self._plan_cache = (plan_key, out.window_plans, used)
         self.iteration_count += T
+        self.last_sent += T
         self.gm, self.gm_adam = out.gm, out.gm_adam
         self.store, self.pose_adam = out.store, out.pose_adam
         return out
@@ -445,7 +454,9 @@ class BackEnd:
         reference's compile-and-dispatch walk has no counterpart)."""
         if self.device.type == "cuda":
             from ..ops import _build
+            t0 = time.time()
             _build.build()
+            self.prewarm_wall_s = time.time() - t0
 
     def handle_keyframe(self, frame_idx, window_uids):
         """Map the new window, then the prune pass."""

@@ -90,20 +90,25 @@ def make_render_plan(
     scaling_modifier: float = 1.0,
     tile16: bool = False,
     opa_growth: float = 1.0,
+    extra_active: Optional[torch.Tensor] = None,
     device=None,
 ):
     """Bin once for the given pose; reuse via ``render(..., plan=plan)``.
     A plan built with a ``radius_pad`` stays a superset of the exact pair
     set while the pose drifts by less than the pad (the kernel's per-pixel
     rect test always uses the current means); ``opa_growth`` budgets the
-    opacity drift of a map under optimization (mapping's window plans)."""
+    opacity drift of a map under optimization (mapping's window plans).
+    ``extra_active``: an optional (capacity,) bool mask ANDed with the
+    map's active set (the tracker's visibility cull plans with it)."""
     dev = _check_inputs(gm, cam, device)
+    require_on(dev, extra_active=extra_active)
     prep = gmath.preprocess(
         gm.xyz, gm.get_cov6(scaling_modifier), gm.get_opacity(),
         gm.get_features(), gm.active_sh_degree, cam.w2c(), cam.projection(),
         torch.zeros(6, dtype=torch.float32, device=dev), cam.fx, cam.fy,
         cam.width, cam.height, cam.tanfovx, cam.tanfovy)
+    active = gm.active if extra_active is None else gm.active & extra_active
     return make_plan(prep, cam.width, cam.height, pair_capacity,
-                     active=gm.active, radius_scale=radius_scale,
+                     active=active, radius_scale=radius_scale,
                      radius_pad=radius_pad, tile16=tile16,
                      opa_growth=opa_growth)

@@ -18,9 +18,13 @@ convergence flag on the host once per iteration (the 8x8 solve does not
 check its info flag on the host). A device-side loop is later work.
 
 Every tracker takes ``tile16``: its plans and renders then use 16-px
-tiles and the 16x16 kernels. Not ported yet (they raise
-NotImplementedError, naming the later slice): ``kernel_bf16``,
-``kernel_mxu`` and ``level_subset``.
+tiles and the 16x16 kernels. ``track_frame_pyr`` takes ``kernel_bf16``
+(every tracking render, forward and backward, on the 32x32 kernels'
+bfloat16 bodies; the keyframing render stays f32), ``track_mask`` (the
+frontend's visibility cull: plans only over the masked Gaussians) and
+``level_subset`` (per-level texture-ranked tile subsets for the IRLS
+phase). Not ported yet: ``kernel_mxu`` raises NotImplementedError, naming
+the later slice.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from ..models.camera import Camera, PoseState
 from ..models.gaussian_map import GaussianMap
 from ..ops import losses
 from ..ops.lie import pose_matrix, se3_exp
+from ..ops.tile_kernel2 import TPX, TPY, grid_dims
 from .render_api import make_render_plan, render
 
 
@@ -275,6 +280,9 @@ def _gn_level(
     use_oracle: bool = False,
     fd_eps: float = 1e-3,
     tile16: bool = False,
+    bf16: bool = False,
+    subset_frac: float = 1.0,
+    track_mask=None,
 ):
     """One pyramid level of IRLS Gauss-Newton pose refinement.
 
@@ -293,6 +301,12 @@ def _gn_level(
     normal matrix (Jc None: H fixed, g from the flow Jacobian) or cached
     probe Jacobians (H re-assembled with current weights).
 
+    ``bf16`` renders on the bfloat16 kernel bodies; ``track_mask`` plans
+    only over the masked Gaussians (``extra_active``); ``subset_frac`` < 1
+    keeps the IRLS renders to the top fraction of 32x32 tiles ranked by
+    loss-weighted constraint mass (``_subset_plan``), while the exact
+    phase and the probes render every tile.
+
     Returns (R, t, ea, eb, iters_done, (H, Jc, Jd), plan, sigma); plan is
     None under ``use_oracle``."""
     dev = gm.device
@@ -304,22 +318,27 @@ def _gn_level(
         plan = (None if use_oracle else make_render_plan(
             gm, cam_l.replace(R=R, t=t), pair_capacity=pair_capacity,
             radius_scale=1.1, radius_pad=radius_pad, tile16=tile16,
-            device=dev))
+            extra_active=track_mask, device=dev))
+    plan_irls = plan
+    if subset_frac < 1.0 and plan is not None and not tile16:
+        plan_irls = _subset_plan(plan, gt_depth, grad_mask, alpha,
+                                 monocular, subset_frac)
 
     zero = torch.zeros((), dtype=f32, device=dev)
     zeros6 = torch.zeros(6, dtype=f32, device=dev)
     loss_args = (gt_image, gt_depth, grad_mask, rgb_boundary_threshold,
                  alpha, monocular)
 
-    def render_at(tau, R_, t_):
+    def render_at(tau, R_, t_, plan_=None):
         return render(gm, cam_l.replace(R=R_, t=t_),
                       PoseState(tau=tau, exposure_a=zero, exposure_b=zero),
                       bg, use_oracle=use_oracle, pair_capacity=pair_capacity,
-                      plan=plan, need_n_touched=False, tile16=tile16,
+                      plan=plan if plan_ is None else plan_,
+                      need_n_touched=False, bf16=bf16, tile16=tile16,
                       low_pass=low_pass, device=dev)
 
     def loss_fn(ea_, eb_, R_, t_):
-        out = render_at(zeros6, R_, t_)
+        out = render_at(zeros6, R_, t_, plan_irls)
         L, image_ab = _tracking_loss(out, ea_, eb_, *loss_args)
         return L, (image_ab, out.depth, out.opacity)
 
@@ -417,6 +436,35 @@ def _gn_level(
     # the final probe may be a rejected overshoot: return the best
     return RB, tB, eaB, ebB, iters_done, (HB, Jc_probe, Jd_probe), plan, \
         sigma_f
+
+
+def _subset_plan(plan, gt_depth, grad_mask, alpha: float, monocular: bool,
+                 subset_frac: float):
+    """``plan`` with the pair ranges of all but the top ``subset_frac`` of
+    its 32x32 tiles collapsed to empty (the reference's sparse direct
+    alignment). Tiles rank by loss-weighted constraint mass: grad-mask
+    pixels carry the RGB term (weight alpha) and, with depth, pixels of
+    valid depth the depth term (weight 1 - alpha). Ties at the k-th mass
+    are kept, so where it is 0 every tile stays. Skipped tiles render as
+    background with opacity 0, which every term of the tracking loss and
+    of the IRLS weights gates out."""
+    h, w = grad_mask.shape[1], grad_mask.shape[2]
+    n_tx, n_ty = grid_dims(w, h)
+
+    def tile_mass(img2d):
+        m2 = torch.nn.functional.pad(img2d, (0, n_tx * TPX - w,
+                                             0, n_ty * TPY - h))
+        return m2.reshape(n_ty, TPY, n_tx, TPX).sum(dim=(1, 3)).reshape(-1)
+
+    mass = tile_mass(grad_mask[0])
+    if not monocular:
+        mass = (alpha * mass + (1.0 - alpha)
+                * tile_mass((gt_depth[0] > 0.01).to(torch.float32)))
+    k = max(1, int(round(n_tx * n_ty * subset_frac)))
+    kth = torch.sort(mass).values[mass.shape[0] - k]
+    keep = mass >= kth
+    ranges = torch.where(keep[:, None], plan.ranges, plan.ranges[:, :1])
+    return plan._replace(ranges=ranges.contiguous())
 
 
 def pair_capacity_bucket(num_pairs: int, ceiling: int,
@@ -518,14 +566,14 @@ def track_frame_pyr(
     level_caps: Optional[tuple] = None,
     level_subset: Optional[tuple] = None,
     plan_in=None,
+    track_mask: Optional[torch.Tensor] = None,
     nt_weight: bool = False,
     final_level: int = 1,
     match_blur: bool = False,
     device=None,
 ) -> Tuple:
     """Coarse-to-fine IRLS Gauss-Newton tracker (the reference's signature
-    and defaults, without ``interpret`` and the frontend's
-    ``track_mask``).
+    and defaults, without ``interpret``).
 
     Levels run coarse-to-fine with warm-started pose and exposure, each on
     a pair plan built at its own resolution (or handed back via
@@ -540,20 +588,26 @@ def track_frame_pyr(
     scales the EWA low-pass so a level render's blur matches the
     average-pooled ground truth. The final keyframing render runs at
     ``final_level`` on that level's plan and fills n_touched (under
-    ``nt_weight``, at the blend-weight threshold).
+    ``nt_weight``, at the blend-weight threshold). ``kernel_bf16`` runs
+    every level render (IRLS and exact) on the bfloat16 kernel bodies,
+    ``track_mask`` plans only over the masked Gaussians (the frontend's
+    visibility cull) and ``level_subset`` gives each level's IRLS tile
+    fraction (``_gn_level``).
 
     Returns (R, t, ea, eb, total_iters, RenderOutput, median_depth,
     H_out, per-level overflow, final num_pairs, per-level num_pairs,
     plans_out). ``device=None`` means CUDA."""
     del lr_rot, lr_trans, max_iters
-    for name, on in (("kernel_bf16", kernel_bf16),
-                     ("kernel_mxu", kernel_mxu),
-                     ("level_subset", level_subset is not None)):
-        if on:
-            _not_ported(name, "the kernel variants and tile subsets")
+    if kernel_mxu:
+        _not_ported("kernel_mxu", "the MXU kernel variants")
+    if kernel_bf16 and tile16 and not use_oracle:
+        raise NotImplementedError(
+            "kernel_bf16 beside tile16: the 16x16 kernels have no bfloat16 "
+            "bodies")
     dev = resolve_device(device)
     _check_frame(dev, gm, cam_template, R0, t0, gt_image, gt_depth,
                  grad_mask, bg)
+    require_on(dev, track_mask=track_mask)
     if level_exact is None:
         level_exact = level_iters
 
@@ -615,7 +669,11 @@ def track_frame_pyr(
             curv=curv, low_pass=lp_l, sigma0=sigma0, sigma_decay=sigma_decay,
             sigma_in=sigma_prev, step_cap=step_cap, exact_iters=exact_l,
             plan_in=None if plan_in is None else plan_in[li],
-            use_oracle=use_oracle, fd_eps=fd_eps, tile16=tile16)
+            use_oracle=use_oracle, fd_eps=fd_eps, tile16=tile16,
+            bf16=kernel_bf16,
+            subset_frac=(1.0 if level_subset is None
+                         else float(level_subset[li])),
+            track_mask=track_mask)
         total_iters += itr_l
         H_out.append(H_prev)
         plans_out.append(plan_l)

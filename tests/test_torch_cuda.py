@@ -239,3 +239,68 @@ def test_render_tile16_matches_tile32_on_gpu(cuda):
         assert torch.equal(getattr(outs[0], name), getattr(outs[1], name)), \
             name
     assert int(outs[1].n_touched.sum()) > 0
+
+
+def _room_rows(cuda):
+    gm, cam = _room(cuda)
+    prep = gmath.preprocess(
+        gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
+        cam.w2c(), cam.projection(), torch.zeros(6, device=cuda), cam.fx,
+        cam.fy, cam.width, cam.height, cam.tanfovx, cam.tanfovy)
+    plan = make_plan(prep, cam.width, cam.height, 1 << 18, radius_pad=2.0)
+    feat = pair_gather(pack_table(prep), plan).contiguous()
+    return feat, plan, cam
+
+
+@pytest.mark.parametrize("with_ntouch,nt_weight",
+                         [(False, False), (True, False), (True, True)])
+def test_bf16_kernel_matches_plain(cuda, with_ntouch, nt_weight):
+    """B1'-bf16 / B1-bf16 against composite32_plain(bf16=True) on the
+    card: both round every bfloat16 operation once (__hmul_rn et al.
+    against torch's per-op rounding) and share the f32 remainder, so the
+    images agree bit for bit and bf16 is applied (they differ from f32)."""
+    feat, plan, cam = _room_rows(cuda)
+    W, H = cam.width, cam.height
+    n_tx, n_ty = tk.grid_dims(W, H)
+    wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
+    before = (wrapper.launches, wrapper.launches_bf16)
+    got = tk.composite32(feat, plan.ranges, n_tx, n_ty, W, H, with_ntouch,
+                         nt_weight, bf16=True)
+    ref = tk.composite32_plain(feat, plan.ranges, n_tx, n_ty, W, H,
+                               with_ntouch, nt_weight, bf16=True)
+    f32 = tk.composite32_plain(feat, plan.ranges, n_tx, n_ty, W, H,
+                               with_ntouch, nt_weight)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_bf16) == \
+        (before[0], before[1] + 1)
+    for a, b in zip(got[:3], ref[:3]):
+        assert float((a - b).abs().max()) <= 1e-4
+    live = int((plan.ranges[:, 1] - plan.ranges[:, 0]).sum())
+    assert int((got.n_touched_pairs != ref.n_touched_pairs).sum()) \
+        <= 1e-4 * live
+    assert float((got.color_sum - f32.color_sum).abs().max()) > 1e-4
+
+
+def test_bf16_backward_kernel_matches_plain(cuda):
+    """B2-bf16 against composite32_bwd_plain(bf16=True) on the card: each
+    column within 1e-5 of its max (only the pixel-sum order differs)."""
+    feat, plan, cam = _room_rows(cuda)
+    W, H = cam.width, cam.height
+    n_tx, n_ty = tk.grid_dims(W, H)
+    fwd = tk.composite32_plain(feat, plan.ranges, n_tx, n_ty, W, H,
+                               with_ntouch=False, bf16=True)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cot = torch.randn(5, H, W, generator=g, device=cuda)
+    args = (feat, plan.ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
+            cot[0:3], cot[3], cot[4], n_tx, n_ty, W, H)
+    before = tk.composite32_bwd.launches_bf16
+    got = tk.composite32_bwd(*args, bf16=True)
+    ref = tk.composite32_bwd_plain(*args, bf16=True)
+    torch.cuda.synchronize()
+    assert tk.composite32_bwd.launches_bf16 == before + 1
+    assert bool(torch.isfinite(got).all())
+    for col in range(10):
+        scale = float(ref[:, col].abs().max())
+        assert float((got[:, col] - ref[:, col]).abs().max()) \
+            <= 1e-5 * scale, col
+    assert torch.equal(got.any(dim=1), ref.any(dim=1))

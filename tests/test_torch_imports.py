@@ -32,11 +32,16 @@ def _port_modules():
 # imported below
 MAPPING_MODULES = ("utils.logging", "ops.knn", "ops.tile_kernel16",
                    "slam.seeding", "slam.mapping", "slam.backend")
+# the modules of the live-system slice, likewise
+SYSTEM_MODULES = ("utils.config", "utils.datasets", "utils.eval",
+                  "utils.ply", "utils.checkpoints", "utils.state_io",
+                  "gui.headless", "slam.frontend", "parallel.pipeline",
+                  "slam.driver", "slam_main")
 
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    for m in MAPPING_MODULES:
+    for m in MAPPING_MODULES + SYSTEM_MODULES:
         assert f"{PORT.name}.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -161,3 +166,30 @@ def test_mapping_entry_points_default_to_cuda(monkeypatch):
         mapping.PoseAdamState.zero(3)
     with pytest.raises(RuntimeError, match="CUDA"):
         BackEnd({"Training": {}}, cam)
+
+
+def test_system_modules_import_without_optional_packages():
+    """The card machine has no pyyaml, PIL, cv2 or matplotlib: the live
+    system's modules import without them (each is imported only where a
+    YAML file, an image file, stereo or a plot needs it)."""
+    blocked = ("yaml", "PIL", "cv2", "matplotlib")
+    mods = [f"{PORT.name}.{m}" for m in SYSTEM_MODULES]
+    code = (
+        "import importlib, sys\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        f"for b in {blocked!r}:\n"
+        "    sys.modules[b] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"from {PORT.name}.utils import datasets\n"
+        "ds = datasets.load_dataset({'Dataset': dict(type='synthetic', "
+        "n_frames=2, scene='room', Calibration=dict(fx=20.0, fy=20.0, "
+        "cx=7.5, cy=5.5, width=16, height=12, depth_scale=1.0))})\n"
+        "assert ds[1][0].shape == (3, 12, 16)\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.strip().endswith("ok")

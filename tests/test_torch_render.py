@@ -157,12 +157,13 @@ def test_weights_carried_across_render_the_same():
 
 
 def test_unported_flags_raise():
-    """bf16 and mxu are not ported: the port raises instead of ignoring
-    them, beside tile16 too (the reference's tile16 branch silently drops
-    bf16/mxu, ops/renderer_tiled.py:149)."""
+    """mxu is not ported, and the 16x16 kernels have no bf16 bodies: the
+    port raises instead of ignoring them (the reference's tile16 branch
+    silently drops bf16/mxu, ops/renderer_tiled.py:149). bf16 alone is
+    tested in tests/test_torch_bf16.py."""
     sc = make_scene(np.random.default_rng(3), n=10, W=64, H=32)
     _, targs = _args(sc, np.zeros(6, np.float32))
-    for flags in ({"bf16": True}, {"mxu": True},
+    for flags in ({"mxu": True}, {"tile16": True, "mxu": True},
                   {"tile16": True, "bf16": True}):
         with pytest.raises(NotImplementedError):
             trt.render(*targs, torch.zeros(3), device="cpu", **flags)

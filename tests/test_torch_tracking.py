@@ -270,9 +270,12 @@ def test_track_frame_pyr_tile16_matches_jax(scene):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(kernel_bf16=True), dict(kernel_mxu=True),
-    dict(level_subset=(1.0, 0.5))])
+    dict(kernel_mxu=True), dict(kernel_bf16=True, tile16=True),
+    dict(kernel_mxu=True, tile16=True)])
 def test_unported_tracker_options_raise(scene, flag):
+    """kernel_mxu is not ported and the 16x16 kernels have no bf16 bodies
+    (kernel_bf16 and level_subset alone are tested against JAX in
+    tests/test_torch_bf16.py and tests/test_torch_frontend.py)."""
     sc = scene
     kw = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
               pair_capacity=CAP, levels=(2, 1), level_iters=(1, 1),
