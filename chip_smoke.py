@@ -80,8 +80,9 @@ Phases (each one that fails ends the run with a non-zero exit code):
    frames rendered on the host before the clock, under SLAM_CONFIG
    (scripts/tpu_slam_run.py's settings over configs/synthetic/test.yaml):
    ``slam`` (single thread, frontend defaults), ``slam-async`` (the
-   threaded pipeline) and ``slam-bf16`` (kernel_bf16 with two exact
-   full-resolution iterations a frame). Each prints the driver's FPS,
+   threaded pipeline), ``slam-bf16`` (kernel_bf16 with two exact
+   full-resolution iterations a frame) and ``slam-mxu`` (below). Each
+   prints the driver's FPS,
    per-frame track p50/max, keyframes, ATE, keyframe PSNR before and
    after refinement, active Gaussians and overflow, and fails on an ATE
    of 1 cm or more or above its regression limit (SLAM_ATE_REG_M), fewer
@@ -105,10 +106,28 @@ against the f32 renders. Phase 4 ends with ``main-path-bf16`` and
 ``exact-pyramid-bf16``: the main path's schedule and the exact pyramid
 with kernel_bf16, each followed by its f32 path's passes for the walls,
 held to their f32 paths' limits and to BF16_REL of their mean errors in
-the same call (exact-pyramid-bf16: at most BF16_REL above). A failed gate is
-printed and the run goes on; it exits non-zero before the result lines
-if any gate failed. Without CUDA it exits non-zero before printing any
-result.
+the same call (exact-pyramid-bf16: at most BF16_REL above).
+
+The mxu slice adds, in phase 2, B1'-mxu and B1-mxu against their plain
+versions on the room's s=4/2/1 tracker plans and at s=2 under nt_weight,
+B2-mxu and B2-bf16-mxu on the s=1 polish and pad-8 plans (the f32
+kernel's time on the same plan beside each; gates MXU_*), the tensor-core
+falloff alone on one chunk (mxu-power-tile line), and B5: each of
+csrc/abl16.cu's eight variants against its plain version at a small
+shape, then scripts/abl16.py's run at its own shape (1216x704, NC=2:
+ms, us/chunk, bound, plain ms). After render-bf16, ``render-mxu``
+(render(mxu=True) with n_touched at the five poses, against the f32
+renders); after exact-pyramid-bf16, ``main-path-mxu``,
+``exact-pyramid-mxu`` and ``exact-pyramid-bf16-mxu`` (as the bf16 paths,
+with kernel_mxu, the last with kernel_bf16 too: B2-bf16-mxu's path; none
+may launch the f32 B1' or B2); and a fourth SLAM run, ``slam-mxu``
+(kernel_mxu with two exact full-resolution iterations a frame, the
+driver started with viewer_port=0 as ``slam_main.py --viewer 0`` starts
+it; a thread fetches /status and one /frame.png over 127.0.0.1 during
+the run and decodes the PNG), held to 1 cm and to SLAM_BF16_ATE_REL of
+slam's ATE. A failed gate is printed and the run goes on; it exits
+non-zero before the result lines if any gate failed. Without CUDA it
+exits non-zero before printing any result.
 """
 
 import json
@@ -138,6 +157,7 @@ from gs_slam_analytica_jacobian_tpu_torch.ops.pair_gather import pair_gather  # 
 from gs_slam_analytica_jacobian_tpu_torch.ops.renderer_tiled import (  # noqa: E402
     make_plan, pack_table)
 from gs_slam_analytica_jacobian_tpu_torch.scenes import make_cloud, make_room_map  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.scripts import abl16  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.slam import mapping  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.slam import tracking  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.slam.backend import BackEnd  # noqa: E402
@@ -163,27 +183,33 @@ R05_ERR_REL = 0.05
 
 # Bound model for the compositing kernel. Memory: every pair row the
 # tiles walk is read once (64 B), the 5-plane image written once, and
-# with n_touched one f32 per walked pair written. Arithmetic: each
-# (pair, pixel) cell walked costs ~30 FP32 operations (deltas 2,
-# quadratic form 9, rect and skip tests 7, exp ~4, alpha/T/weight 5,
-# four multiply-adds 8, minus what a skipped cell never reaches).
-# Peaks: 3.35 TB/s HBM and 67 TFLOP/s FP32 (H100 SXM data sheet,
-# non-tensor FP32, at the full 700 W power limit).
-OPS_PER_CELL = 30.0
+# with n_touched one f32 per walked pair written. Arithmetic, counted
+# from csrc/tile_kernel2_fwd.cu: each (pair, pixel) cell walked costs ~25
+# FP32 operations (deltas 2, quadratic form 9, rect and skip tests 7, exp
+# ~4, the opacity product, the 0.99 cap and the 1/255 test 3), and a cell
+# that passes the skip tests while its pixel is not done (counted by the
+# plain version on this run's data: the included cells and each pixel's
+# terminating one) 13 more (T_incl 2, the 1e-4 test 1, the weight 1, four
+# multiply-adds 8, the n_touched test 1). Peaks: 3.35 TB/s HBM and 67
+# TFLOP/s FP32 (H100 SXM data sheet, non-tensor FP32, at the full 700 W
+# power limit).
+OPS_PER_WALKED_CELL = 25.0
+OPS_PER_PASSED_CELL = 13.0
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # Bound model for the backward kernel (B2). Memory: every walked pair row
 # read once (64 B) and every pair row of dfeat written once (64 B), the
 # ten (H, W) planes (forward color 3, depth, T; cotangents 3, depth, T)
 # read once. Arithmetic, counted from csrc/tile_kernel2_bwd.cu: every
-# walked (pair, pixel) cell recomputes the forward (30, as above); only a
-# cell whose pixel includes the pair (counted by the plain version on
-# this run's data) also evaluates the gradient, 46 (w 1, A 7, prefix 2,
+# walked (pair, pixel) cell recomputes the forward's walked share (25, as
+# above); only a cell whose pixel includes the pair (counted by the plain
+# version on this run's data) also steps the transmittance (T_incl 2, the
+# 1e-4 test 1), evaluates the gradient, 46 (w 1, A 7, prefix 2,
 # 1/(1-alpha) 3, dL/dalpha 4, G 2, dL/dG 1, G dx and G dy 2, dG/ddx and
 # dG/ddy 8, the five quadratic-form terms 11, d_opa 1, w dC and w dD 4),
-# and adds its ten row values into the pair's sums, 10.
-OPS_PER_WALKED_CELL_BWD = 30.0
-OPS_PER_INCLUDED_CELL_BWD = 56.0
+# and adds its ten row values into the pair's sums, 10: 59.
+OPS_PER_WALKED_CELL_BWD = 25.0
+OPS_PER_INCLUDED_CELL_BWD = 59.0
 
 # Tolerances. The kernel is built without multiply-add contraction and
 # composites pair by pair like its plain version, so the two agree bit
@@ -325,6 +351,89 @@ MAP_POSE_ERR_MAX_MM = 2.5
 BF16_REPS = 3
 BF16_REL = 0.10
 
+# The mxu kernels (B1-mxu, B1'-mxu, B2-mxu, B2-bf16-mxu) against their
+# plain versions: the tensor cores' power against the plain version's f32
+# torch.matmul (precision "highest") differs by rounding, and a flipped
+# 1/255 or T test moves one pixel by up to ~4e-3: color and final_T max
+# |difference| within 1e-3, depth within 5e-3, the 99.9th percentile of
+# |difference| of each plane within 1e-4 (color, T) and 5e-4 (depth, in
+# metres up to 6 m: where the expanded form's terms reach |power| ~2900 the
+# plain f32 form itself sits ~1e-4 off float64, and on the H100 the depth
+# plane of tests/test_torch_cuda.py's wide-angle room read 1.04e-4 at its
+# 99.9th percentile, NVIDIA H100 80GB HBM3, 700.00 W); n_touched
+# mismatches at most 1e-3 of the live pairs; the backward's columns within
+# 1e-3 of their max and dL/dtau within 2e-3 relative (the set of exactly
+# zero rows may differ by a flipped test, so it is reported, not gated).
+# The falloff alone (mxu_falloff.cuh, one chunk's power block) within 1e-4
+# of the f32 G6 @ P6, the reference's documented error
+# (tile_kernel2.py:105-108),
+# where the power can matter (f32 power >= MXU_POWER_FLOOR: alpha >= 1/255
+# needs power >= -5.6); over the whole block within 1e-4 plus two ulps of
+# the power: on the H100 the two differ by one f32 ulp at the block's
+# largest magnitudes (2.44e-4 at |power| ~ 2048, NVIDIA H100 80GB HBM3,
+# 700.00 W), where the f32 G6 @ P6 itself is ~3e-4 off float64.
+# B2-bf16-mxu's columns within 2e-3 of their max: its power differs from
+# the plain version's by an ulp, which moves G across a bfloat16 rounding
+# boundary in some cells, and each such cell's five products move by a
+# bfloat16 ulp (2^-8): on the H100 (NVIDIA H100 80GB HBM3, 700.00 W) the
+# s=1 polish and pad-8 plans read 1.2e-4-4.3e-4 of the column max under
+# both cotangents. The bfloat16 products must also have taken effect:
+# B2-bf16-mxu's rows differ from B2-mxu's on the same inputs (the five
+# quadratic-form columns, Frobenius norm) by more than from their plain
+# version: the bfloat16 rounding itself moves a column by only a small
+# multiple of the column limit, so that limit alone cannot tell a kernel
+# that kept f32 products apart.
+#
+# A flipped test is rare but not absent: on the H100 (NVIDIA H100 80GB
+# HBM3, 700.00 W, the room's s=4/2/1 tracker plans) 0-3 of the 0.25-4.1
+# million image values exceeded those limits (max 1.18e-3 in color,
+# 5.06e-3 in depth, 9.2e-4 in T) while the 99.9th percentile read
+# 2.4e-6-6.7e-6 (the five planes pooled) and the 99.99th at most 2.6e-5.
+# So the max limits above hold all but MXU_FLIP_FRAC of the values, and
+# every value stays within what flipped tests can move it by,
+# MXU_FLIP_TOL: a pair's 1/255 test
+# moves a pixel's weights by at most 2/255 of its channel range (its own
+# weight and the transmittance it takes from the pairs behind), the color
+# and T in [0, 1], the depth in [0, 6] m on the room.
+MXU_IMG_TOL = {"color": 1e-3, "depth": 5e-3, "T": 1e-3}
+MXU_FLIP_FRAC = 1e-5
+MXU_FLIP_TOL = {"color": 8e-3, "depth": 5e-2, "T": 8e-3}
+MXU_P999_TOL = {"color": 1e-4, "depth": 5e-4, "T": 1e-4}
+MXU_NT_MISMATCH_FRAC = 1e-3
+MXU_BWD_COL_TOL = 1e-3
+MXU_BF16_BWD_COL_TOL = 2e-3
+MXU_BWD_DTAU_TOL = 2e-3
+MXU_POWER_TOL = 1e-4
+MXU_POWER_FLOOR = -20.0
+# render-mxu against the f32 renders: tests/test_renderer_tiled.py's
+# mxu gates (max |difference| of color, depth, opacity), for all but
+# MXU_FLIP_FRAC of the values, every value within MXU_FLIP_TOL (the 99.9th
+# percentile is reported: the two evaluate the power by different
+# formulas, so their differences are not at rounding level): on the H100
+# the five renders read max 1.48e-3 (color), 3.06e-3 (depth), 5.5e-4
+# (opacity), 2-4 Gaussians of 200k differing in n_touched (the f32
+# kernel's direct quadratic form and the tile-local expansion differ by
+# f32 rounding, which flips a few 1/255 tests).
+MXU_RENDER_TOL = {"color": 1e-3, "depth": 5e-3, "opacity": 1e-3}
+MXU_RENDER_FLIP_TOL = {"color": 8e-3, "depth": 5e-2, "opacity": 8e-3}
+# The mxu bound: the tensor cores' share, three TF32 m16n16k8 passes of
+# the power block, 3 x 2 x 8 FLOP a walked (pair, pixel) cell at the dense
+# TF32 peak (495 TFLOP/s, H100 SXM data sheet), charged beside the CUDA
+# cores' share at the FP32 peak. CUDA-core operations, counted from
+# csrc/tile_kernel2_fwd.cu under kMXU: a walked cell the f32 kernel's 25
+# less the deltas (2) and the quadratic form (9), plus the clamp 1: 15;
+# a cell that passes the skip tests while its pixel is not done (the only
+# cells that reach the log-space prefix) the f32 kernel's 13 less the
+# linear T_incl (2), plus log1pf ~8, the second expf ~4, the division ~4,
+# the log-space sum and product 2 and the T min 1: 30. The mxu backward
+# recomputes the linear walk and keeps the deltas for the gradient
+# products: 25 - 9 + 1 = 17 a walked cell, and B2's 59 an included cell.
+TF32_FLOP_PER_S = 495e12
+TC_FLOP_PER_CELL = 3 * 2 * 8
+OPS_PER_WALKED_CELL_MXU = 15.0
+OPS_PER_PASSED_CELL_MXU = 30.0
+OPS_PER_WALKED_CELL_BWD_MXU = 17.0
+
 # The SLAM paths: the port's SLAM driver on the synthetic room at
 # 1216x672 (fx = fy = 600), scripts/tpu_slam_run.py:34-95's settings over
 # configs/synthetic/test.yaml's values, written out as a dict (the card
@@ -382,6 +491,12 @@ SLAM_RUNS = (
     ("slam-bf16", {"kernel_bf16": True, "pyr_exact": [0, 0, 2]},
      ("composite32_fwd_bf16", "composite32_bwd_bf16",
       "composite32_fwd_ntouch")),
+    # kernel_mxu with the same two exact full-resolution iterations, so
+    # every IRLS render runs B1'-mxu and the exact steps B2-mxu; started
+    # as the CLI starts it with --viewer 0 (run_slam probes the viewer)
+    ("slam-mxu", {"kernel_mxu": True, "pyr_exact": [0, 0, 2]},
+     ("composite32_fwd_mxu", "composite32_bwd_mxu",
+      "composite32_fwd_ntouch")),
 )
 # ATE: under 1 cm, and under a regression limit of ~1.25x the first H100
 # reading (NVIDIA H100 80GB HBM3, 700.00 W: slam 1.892 mm, slam-bf16
@@ -393,6 +508,8 @@ SLAM_ATE_REG_M = {"slam": 2.4e-3, "slam-async": 2.4e-3,
                   "slam-bf16": 2.3e-3}
 SLAM_BF16_ATE_REL = 1.25
 SLAM_MIN_KF = 3
+# slam-mxu: under 1 cm and within SLAM_BF16_ATE_REL of slam's ATE (no
+# regression limit of its own before a first reading)
 
 
 FAILURES = []
@@ -455,27 +572,28 @@ def pose_list(n=FRAMES):
 # ---------------------------------------------------------------------------
 
 def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                nt_weight=False, tile16=False, time_plain=True, bf16=False):
+                nt_weight=False, tile16=False, time_plain=True, bf16=False,
+                mxu=False):
     """A forward kernel against its plain version on one plan: B1/B1'
-    (32x32), under ``bf16`` their bfloat16 bodies (and the f32 kernel's
-    time on the same plan beside them), or under ``tile16`` B3/B3'
-    (n_tx x n_ty is then the 16-px tile grid). Plain time unless not
-    ``time_plain``."""
+    (32x32), under ``bf16`` or ``mxu`` their bfloat16 or MXU bodies (and
+    the f32 kernel's time on the same plan beside them), or under
+    ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile grid). Plain
+    time unless not ``time_plain``."""
     tile = 16 if tile16 else 32
 
-    def kernel(bf16=bf16):
+    def kernel(bf16=bf16, mxu=mxu):
         if tile16:
             return tk16.composite16(feat, ranges, n_tx // 2, n_ty // 2, w, h,
                                     with_ntouch, nt_weight)
         return tk.composite32(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                              nt_weight, bf16)
+                              nt_weight, bf16, mxu)
 
     def plain():
         return tk.plain_walk(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                             nt_weight, tile=tile, bf16=bf16)
+                             nt_weight, tile=tile, bf16=bf16, mxu=mxu)
 
     torch.cuda.synchronize()
-    (ref, walked) = plain()
+    (ref, walked, passed) = plain()
     got = kernel()
     torch.cuda.synchronize()
     errs = {
@@ -487,32 +605,67 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     live = int((ranges[:, 1] - ranges[:, 0]).sum())
     nt_bad = int((got.n_touched_pairs != ref.n_touched_pairs).sum())
     walked_pairs = int(walked.sum())
+    passed_cells = int(passed)
+    diffs = {k: (a - b).abs().flatten() for k, a, b in zip(
+        ("color", "depth", "T"), got[:3], ref[:3])}
+    diff = torch.cat(list(diffs.values()))
+    p999 = {k: float(torch.quantile(d, 0.999)) for k, d in diffs.items()}
+    p9999 = {k: float(torch.quantile(d, 0.9999)) for k, d in diffs.items()}
+    over_1e3 = int((diff > 1e-3).sum())
+    over_tol = sum(int((diffs[k] > MXU_IMG_TOL[k]).sum()) for k in diffs)
     ms = time_ms(kernel)
-    plain_ms = (time_ms(plain, reps=3 if bf16 else 5, warm=1) if time_plain
-                else None)
+    plain_ms = (time_ms(plain, reps=3 if bf16 or mxu else 5, warm=1)
+                if time_plain else None)
     n_bytes = (walked_pairs * 64 + ranges.numel() * 4 + 5 * h * w * 4
                + (walked_pairs * 4 if with_ntouch else 0))
-    n_ops = walked_pairs * tile * tile * OPS_PER_CELL
+    cells = walked_pairs * tile * tile
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    if mxu:
+        t_ops = ((cells * OPS_PER_WALKED_CELL_MXU
+                  + passed_cells * OPS_PER_PASSED_CELL_MXU)
+                 / FP32_OPS_PER_S
+                 + cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S) * 1e3
+    else:
+        t_ops = (cells * OPS_PER_WALKED_CELL + passed_cells
+                 * OPS_PER_PASSED_CELL) / FP32_OPS_PER_S * 1e3
     rec = dict(case=name, tile=tile, shape=f"{w}x{h}",
-               with_ntouch=with_ntouch, bf16=bf16,
+               with_ntouch=with_ntouch, bf16=bf16, mxu=mxu,
                nt_weight=nt_weight, live_pairs=live,
-               walked_pairs=walked_pairs, max_abs_err=errs,
-               nt_mismatch=nt_bad, ms=ms, plain_ms=plain_ms,
-               bound_ms=max(t_bytes, t_ops),
+               walked_pairs=walked_pairs, walked_cells=cells,
+               passed_cells=passed_cells, max_abs_err=errs,
+               p999_abs_err=p999, p9999_abs_err=p9999,
+               values_over_1e3=over_1e3, values=int(diff.numel()),
+               values_over_mxu_tol=over_tol, nt_mismatch=nt_bad, ms=ms,
+               plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes > t_ops else "operations")
-    if bf16:
-        rec["f32_ms"] = time_ms(lambda: kernel(False))
+    if mxu:
+        rec["bound_tensor_core_ms"] = cells * TC_FLOP_PER_CELL \
+            / TF32_FLOP_PER_S * 1e3
+    if bf16 or mxu:
+        rec["f32_ms"] = time_ms(lambda: kernel(False, False))
         rec["differs_from_f32"] = float(
-            (got.color_sum - kernel(False).color_sum).abs().max())
+            (got.color_sum - kernel(False, False).color_sum).abs().max())
     print("kernel-vs-plain " + json.dumps(rec), flush=True)
     if not finite:
         fail(f"{name}: non-finite kernel output")
-    if max(errs.values()) > IMG_TOL:
-        fail(f"{name}: kernel differs from plain by {errs}")
-    if nt_bad > NT_MISMATCH_FRAC * live:
-        fail(f"{name}: {nt_bad} n_touched mismatches of {live} live pairs")
+    if mxu:
+        if over_tol > MXU_FLIP_FRAC * diff.numel() \
+                or any(p999[k] > MXU_P999_TOL[k] for k in p999) \
+                or any(errs[k] > MXU_FLIP_TOL[k] for k in errs):
+            fail(f"{name} (mxu): kernel differs from plain by {errs}, "
+                 f"{over_tol} of {diff.numel()} values above {MXU_IMG_TOL}, "
+                 f"99.9th percentiles {p999} (limits: "
+                 f"{MXU_FLIP_FRAC:.0e} of the values, {MXU_P999_TOL}, each "
+                 f"within {MXU_FLIP_TOL})")
+        if nt_bad > MXU_NT_MISMATCH_FRAC * live:
+            fail(f"{name} (mxu): {nt_bad} n_touched mismatches of {live} "
+                 "live pairs")
+    else:
+        if max(errs.values()) > IMG_TOL:
+            fail(f"{name}: kernel differs from plain by {errs}")
+        if nt_bad > NT_MISMATCH_FRAC * live:
+            fail(f"{name}: {nt_bad} n_touched mismatches of {live} live "
+                 "pairs")
     if bf16 and rec["differs_from_f32"] <= IMG_TOL:
         fail(f"{name}: the bf16 kernel's image equals the f32 kernel's")
     return rec
@@ -662,13 +815,14 @@ def mapping_cotangent(planes, target):
 
 def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             target, seed, time_plain=True, tile16=False, opa_growth=1.0,
-            cot_fn=loss_cotangent, bf16=False):
+            cot_fn=loss_cotangent, bf16=False, mxu=False):
     """The backward kernel against its plain version on one plan (B2,
-    under ``bf16`` B2-bf16 on the bf16 forward's planes with the f32
-    kernel's time beside it, or under ``tile16`` B4 on a 16-px plan)
-    under ``cot_fn``'s loss cotangent and a seeded one: per-column error,
-    dL/dtau through both routes, and kernel / bound times, and the plain
-    version's unless not ``time_plain``."""
+    under ``bf16`` and/or ``mxu`` B2-bf16, B2-mxu or B2-bf16-mxu on the
+    matching forward's planes with the f32 kernel's time beside it, or
+    under ``tile16`` B4 on a 16-px plan) under ``cot_fn``'s loss cotangent
+    and a seeded one: per-column error, dL/dtau through both routes, and
+    kernel / bound times, and the plain version's unless not
+    ``time_plain``."""
     tau = torch.zeros(6, device=dev, requires_grad=True)
     prep = prep_fn(tau)
     plan = make_plan(prep, w, h, cap, radius_scale=radius_scale,
@@ -682,13 +836,13 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         def kernel(*a):
             return tk16.composite16_bwd(*a[:8], n_tx // 2, n_ty // 2, w, h)
     else:
-        def kernel(*a, bf16=bf16):
-            return tk.composite32_bwd(*a, bf16=bf16)
+        def kernel(*a, bf16=bf16, mxu=mxu):
+            return tk.composite32_bwd(*a, bf16=bf16, mxu=mxu)
     with torch.no_grad():
         fwd = (tk16.composite16_fwd(feat_c, ranges, n_tx // 2, n_ty // 2, w,
                                     h) if tile16
                else tk.composite32_fwd(feat_c, ranges, n_tx, n_ty, w, h,
-                                       bf16=bf16))
+                                       bf16=bf16, mxu=mxu))
     planes = (fwd.color_sum, fwd.depth_sum, fwd.final_T)
     gen = torch.Generator(device=dev).manual_seed(seed)
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
@@ -701,13 +855,18 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         with torch.no_grad():
             got = kernel(*args)
             ref, walked, included = tk.plain_bwd_walk(*args, tile=tile,
-                                                      bf16=bf16)
+                                                      bf16=bf16, mxu=mxu)
         torch.cuda.synchronize()
         col_rel = []
         for c in range(tk.N_ROWS):
             scale = float(ref[:, c].abs().max())
             err = float((got[:, c] - ref[:, c]).abs().max())
             col_rel.append(err / scale if scale > 0 else err)
+        if bf16 and mxu:
+            with torch.no_grad():
+                f32_products = kernel(*args, bf16=False)
+            bf16_effect = float((got[:, :5] - f32_products[:, :5]).norm())
+            plain_gap = float((got[:, :5] - ref[:, :5]).norm())
         (dtau_k,) = torch.autograd.grad(feat, tau, got, retain_graph=True)
         (dtau_p,) = torch.autograd.grad(feat, tau, ref, retain_graph=True)
         dtau_rel = float((dtau_k - dtau_p).abs().max()
@@ -715,20 +874,26 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         with torch.no_grad():
             ms = time_ms(lambda: kernel(*args))
             plain_ms = (time_ms(lambda: tk.plain_bwd_walk(
-                *args, tile=tile, bf16=bf16), reps=3 if bf16 else 7, warm=1)
+                *args, tile=tile, bf16=bf16, mxu=mxu),
+                reps=3 if bf16 or mxu else 7, warm=1)
                 if time_plain else None)
-            f32_ms = time_ms(lambda: kernel(*args, bf16=False)) if bf16 \
-                else None
+            f32_ms = (time_ms(lambda: kernel(*args, bf16=False, mxu=False))
+                      if bf16 or mxu else None)
         walked_pairs = int(walked.sum())
         included_cells = int(included)
+        cells = walked_pairs * tile * tile
         n_bytes = (walked_pairs * 64 + feat_c.shape[0] * 64
                    + ranges.numel() * 4 + 10 * h * w * 4)
-        n_ops = (walked_pairs * tile * tile * OPS_PER_WALKED_CELL_BWD
+        n_ops = (cells * (OPS_PER_WALKED_CELL_BWD_MXU if mxu
+                          else OPS_PER_WALKED_CELL_BWD)
                  + included_cells * OPS_PER_INCLUDED_CELL_BWD)
         t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
         t_ops = n_ops / FP32_OPS_PER_S * 1e3
+        if mxu:
+            t_ops += cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S * 1e3
         rec = dict(
             case=name, tile=tile, cotangent=kind, shape=f"{w}x{h}", bf16=bf16,
+            mxu=mxu,
             B_al=int(feat_c.shape[0]), live_pairs=int(plan.num_pairs),
             walked_pairs=walked_pairs,
             walked_cells=walked_pairs * tile * tile,
@@ -741,18 +906,29 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             dtau_rel_err=dtau_rel, ms=ms, plain_ms=plain_ms, f32_ms=f32_ms,
             bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes > t_ops else "operations")
-        label = "B4" if tile16 else ("B2-bf16" if bf16 else "B2")
+        if bf16 and mxu:
+            rec.update(bf16_effect_norm=bf16_effect, plain_gap_norm=plain_gap)
+        label = "B4" if tile16 else "B2" + ("-bf16" if bf16 else "") + (
+            "-mxu" if mxu else "")
+        col_tol = ((MXU_BF16_BWD_COL_TOL if bf16 else MXU_BWD_COL_TOL)
+                   if mxu else BWD_COL_TOL)
+        dtau_tol = MXU_BWD_DTAU_TOL if mxu else BWD_DTAU_TOL
         print(f"{label.lower()}-vs-plain " + json.dumps(rec), flush=True)
         if not bool(torch.isfinite(got).all()):
             fail(f"{label} {name}/{kind}: non-finite rows")
-        if got[:, tk.N_ROWS:].any() or not rec["zero_rows_equal"]:
+        if got[:, tk.N_ROWS:].any() or (not rec["zero_rows_equal"]
+                                        and not mxu):
             fail(f"{label} {name}/{kind}: rows that must be zero are not")
-        if max(col_rel) > BWD_COL_TOL:
+        if max(col_rel) > col_tol:
             fail(f"{label} {name}/{kind}: a column differs from plain by "
-                 f"{max(col_rel):.3e} of its max (limit {BWD_COL_TOL})")
-        if dtau_rel > BWD_DTAU_TOL:
+                 f"{max(col_rel):.3e} of its max (limit {col_tol})")
+        if dtau_rel > dtau_tol:
             fail(f"{label} {name}/{kind}: dL/dtau differs by "
-                 f"{dtau_rel:.3e} relative (limit {BWD_DTAU_TOL})")
+                 f"{dtau_rel:.3e} relative (limit {dtau_tol})")
+        if bf16 and mxu and bf16_effect <= plain_gap:
+            fail(f"{label} {name}/{kind}: the bf16 products moved the rows "
+                 f"by {bf16_effect:.3e}, no more than the gap to plain "
+                 f"{plain_gap:.3e}")
         recs.append(rec)
     return recs
 
@@ -1021,6 +1197,200 @@ def phase_kernels_bf16(dev, gm, cam, gt1):
     return fwd, bwd
 
 
+def phase_kernels_mxu(dev, gm, cam, gt1):
+    """B1'-mxu and B1-mxu against their plain versions on the room's
+    tracker plans at s=4/2/1 (as phase_kernels builds them) and at s=2
+    under nt_weight, the f32 kernel's time on the same plan beside each;
+    B2-mxu and B2-bf16-mxu on the s=1 polish plan (pad 2) and the s=1 pad-8
+    plan under the loss cotangent and a seeded one; then the falloff alone
+    (mxu_power_check)."""
+    fwd, bwd = [], []
+    both = [(False, False), (True, False)]
+    for s, forms in ((4, [(False, False)]), (2, both + [(True, True)]),
+                     (1, both)):
+        cam_l = tracking._cam_level(cam, s)
+        lp = (0.3 + (s * s - 1) / 12.0) / (s * s) if s > 1 else 0.3
+        prep = gmath.preprocess(
+            gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
+            cam_l.w2c(), cam_l.projection(), torch.zeros(6, device=dev),
+            cam_l.fx, cam_l.fy, cam_l.width, cam_l.height, cam_l.tanfovx,
+            cam_l.tanfovy, low_pass=lp)
+        cap = PAIR_CAP if s == 1 else PAIR_CAP // 2
+        feat, ranges, n_tx, n_ty, plan = pair_rows(
+            prep, cam_l.width, cam_l.height, cap, 1.1, max(2.0, 4.0 / s))
+        for with_nt, nt_w in forms:
+            fwd.append(kernel_case(f"room_s{s}_mxu", feat, ranges, n_tx,
+                                   n_ty, cam_l.width, cam_l.height, with_nt,
+                                   nt_w, time_plain=s == 2 and not nt_w,
+                                   mxu=True))
+        if s == 1:
+            power = mxu_power_check(feat, ranges, n_tx)
+    for case, pad, seed, timed in (("room_s1_polish", 2.0, 8, True),
+                                   ("room_s1_pad8", 8.0, 9, False)):
+        for bf16 in (False, True):
+            bwd += b2_case(f"{case}_{'bf16_' if bf16 else ''}mxu", dev,
+                           level_prep_fn(dev, gm, cam, 0.3), W, H, PAIR_CAP,
+                           1.1, pad, gt1, seed=seed,
+                           time_plain=timed, bf16=bf16, mxu=True)
+    return fwd, bwd, power
+
+
+def mxu_power_check(feat, ranges, n_tx):
+    """csrc/mxu_falloff.cuh alone: the power block of the first chunk of
+    the tile with the most pairs (tensor cores, mxu_power_tile) against
+    the f32 G6 @ P6 (torch.matmul at precision "highest") and, for scale,
+    both against float64; gated at MXU_POWER_TOL."""
+    n = (ranges[:, 1] - ranges[:, 0]).cpu()
+    tile = int(torch.argmax(n))
+    start = int(ranges[tile, 0])
+    rows = feat[start:start + min(int(n[tile]), tk.K)].contiguous()
+    tx, ty = tile % n_tx, tile // n_tx
+    got = tk.mxu_power_tile(rows, tx, ty)
+    ref = tk.mxu_power_tile_plain(rows, tx, ty)
+    q = torch.arange(tk.P, device=feat.device)
+    r64 = rows.double()
+    cx, cy = tx * 32 + 15.5, ty * 32 + 15.5
+    pxl = (tx * 32 + q % 32).double() - cx
+    pyl = (ty * 32 + q // 32).double() - cy
+    mxl, myl = r64[:, 0:1] - cx, r64[:, 1:2] - cy
+    ca, cb, cc = r64[:, 2:3], r64[:, 3:4], r64[:, 4:5]
+    ref64 = torch.zeros(tk.K, tk.P, dtype=torch.float64, device=feat.device)
+    ref64[:rows.shape[0]] = (-0.5 * ca * (mxl - pxl) ** 2
+                             - cb * (mxl - pxl) * (myl - pyl)
+                             - 0.5 * cc * (myl - pyl) ** 2)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    near = ref >= MXU_POWER_FLOOR
+    over = d - (MXU_POWER_TOL + 2.0 ** -22 * ref.abs())
+    rec = dict(tile=tile, pairs=int(rows.shape[0]),
+               max_abs_power=float(ref.abs().max()),
+               max_abs_err_vs_f32=float(d.max()),
+               max_abs_err_vs_f32_near=float(d[near].max()),
+               cells_near=int(near.sum()),
+               cells_differing=int((d > 0).sum()),
+               max_abs_err_kernel_vs_f64=float((got.double() - ref64).abs()
+                                               .max()),
+               max_abs_err_f32_vs_f64=float((ref.double() - ref64).abs()
+                                            .max()),
+               card=card_line())
+    print("mxu-power-tile " + json.dumps(rec), flush=True)
+    if rec["max_abs_err_vs_f32_near"] > MXU_POWER_TOL \
+            or float(over.max()) > 0:
+        fail(f"mxu_falloff: power block {rec['max_abs_err_vs_f32_near']:.3e} "
+             f"off the f32 G6 @ P6 where power >= {MXU_POWER_FLOOR} (limit "
+             f"{MXU_POWER_TOL}), {rec['max_abs_err_vs_f32']:.3e} over the "
+             "block (limit 1e-4 + 2 ulp)")
+    return rec
+
+
+@torch.no_grad()
+def render_mxu_path(dev, gm, cam, poses):
+    """``render(mxu=True)`` with n_touched at each pose of ``poses``, launch
+    counts from 0: B1-mxu's path. Each render is held against the f32
+    render at the same pose at MXU_RENDER_TOL (color, depth, opacity);
+    n_touched mismatches are reported. Fails on non-finite output,
+    overflow or a gate."""
+    reset_counts()
+    bg = torch.zeros(3, device=dev)
+    diffs = {k: [] for k in MXU_RENDER_TOL}
+    nt_diff, finite, ovf = [], True, 0
+    for Tp in poses:
+        c = cam.replace(R=torch.as_tensor(Tp[:3, :3], device=dev),
+                        t=torch.as_tensor(Tp[:3, 3], device=dev))
+        out = render(gm, c, None, bg, pair_capacity=PAIR_CAP, mxu=True,
+                     device=dev)
+        with uncounted():
+            ref = render(gm, c, None, bg, pair_capacity=PAIR_CAP, device=dev)
+        for k in diffs:
+            diffs[k].append((getattr(out, k) - getattr(ref, k)).abs()
+                            .flatten())
+        nt_diff.append(int((out.n_touched != ref.n_touched).sum()))
+        finite &= bool(torch.isfinite(out.color).all()
+                       and torch.isfinite(out.depth).all())
+        ovf = max(ovf, int(out.overflow))
+    diffs = {k: torch.cat(v) for k, v in diffs.items()}
+    every = torch.cat(list(diffs.values()))
+    over = sum(int((diffs[k] > MXU_RENDER_TOL[k]).sum()) for k in diffs)
+    maxes = {k: float(d.max()) for k, d in diffs.items()}
+    p999 = float(torch.quantile(every[:1 << 24], 0.999))
+    rec = dict(path="render-mxu", renders=len(poses), resolution=f"{W}x{H}",
+               max_abs_diff_vs_f32=maxes, p999_abs_diff=p999,
+               values=int(every.numel()), values_over_mxu_tol=over,
+               n_touched_mismatch=nt_diff, overflow=ovf, finite=finite,
+               card=card_line())
+    print("render-mxu " + json.dumps(rec), flush=True)
+    counts = read_counts("render-mxu", ("composite32_fwd_ntouch_mxu",),
+                         forbidden=("composite32_fwd_ntouch",))
+    if not finite or ovf:
+        fail(f"render-mxu: non-finite output or overflow {ovf}")
+    if over > MXU_FLIP_FRAC * every.numel() \
+            or any(maxes[k] > MXU_RENDER_FLIP_TOL[k] for k in maxes):
+        fail(f"render-mxu: against the f32 renders {maxes}, {over} values "
+             f"above {MXU_RENDER_TOL} (limits: {MXU_FLIP_FRAC:.0e} of the "
+             f"values, each within {MXU_RENDER_FLIP_TOL})")
+    return counts
+
+
+def phase_abl16(dev):
+    """B5: each variant of csrc/abl16.cu against its plain version at a
+    small shape (4 x 3 groups) on the script's plan and on a plan whose
+    rect16 columns admit every cell (1e-5 relative), then the script's
+    own run (scripts/abl16.py's main: 1216x704, NC=2) with the launch
+    counts from 0: per variant ms, us/chunk, the bound, and the plain
+    version's time at that shape."""
+    recs = {}
+    for v in abl16.VARIANTS:
+        rel = err = 0.0
+        for make, nc in ((abl16.make_inputs, 1),
+                         (abl16.make_admitting_inputs, 2)):
+            feat, ranges = make(4, 3, nc, device=dev)
+            got = abl16.run(feat, ranges, 4, 3, 128, 96, nc, v)
+            ref = abl16.run_plain(feat, ranges, 4, 3, 128, 96, nc, v)
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"abl16_{v}: non-finite output")
+            rel = max(rel, float(((got - ref).abs() / ref.abs()).max()))
+            err = max(err, float((got - ref).abs().max()))
+        recs[v] = dict(max_rel_err=rel, max_abs_err=err)
+        if not rel <= 1e-5:
+            fail(f"abl16_{v}: kernel differs from plain by {rel:.3e} "
+                 "relative (limit 1e-5)")
+    sh = abl16.SHAPE
+    n_gx, n_gy, w, h = sh["n_gx"], sh["n_gy"], sh["W"], sh["H"]
+    nc = 2
+    feat, ranges = abl16.make_inputs(n_gx, n_gy, nc, device=dev)
+    chunks = 4 * n_gx * n_gy * nc
+    # the script's run (its main), launch counts from 0
+    abl16.run.launches = {v: 0 for v in abl16.VARIANTS}
+    for v in abl16.VARIANTS:
+        ms = time_ms(lambda: abl16.run(feat, ranges, n_gx, n_gy, w, h, nc,
+                                       v))
+        bnd, by = abl16.bound_ms(ranges, n_gx, n_gy, nc, v)
+        recs[v].update(ms=ms, us_per_chunk=ms * 1e3 / chunks, bound_ms=bnd,
+                       bound_by=by)
+    launches = dict(abl16.run.launches)
+    for v in abl16.VARIANTS:
+        with torch.no_grad():
+            got = abl16.run(feat, ranges, n_gx, n_gy, w, h, nc, v)
+            ref = abl16.run_plain(feat, ranges, n_gx, n_gy, w, h, nc, v)
+            recs[v]["max_rel_err_script_shape"] = float(
+                ((got - ref).abs() / ref.abs()).max())
+        recs[v]["plain_ms"] = time_ms(lambda: abl16.run_plain(
+            feat, ranges, n_gx, n_gy, w, h, nc, v), reps=1, warm=1)
+        recs[v]["launches"] = launches[v]
+        if recs[v]["max_rel_err_script_shape"] > 1e-5:
+            fail(f"abl16_{v}: at the script's shape the kernel differs from "
+                 f"plain by {recs[v]['max_rel_err_script_shape']:.3e}")
+        print(f"abl16 {v:9s} {recs[v]['ms']:8.3f} ms "
+              f"{recs[v]['us_per_chunk']:7.3f} us/chunk  bound "
+              f"{recs[v]['bound_ms']:.3f} ms ({recs[v]['bound_by']})  plain "
+              f"{recs[v]['plain_ms']:.1f} ms", flush=True)
+    print("abl16 " + json.dumps(dict(shape=f"{w}x{h}", chunks=chunks,
+                                     variants=recs, card=card_line())),
+          flush=True)
+    return recs
+
+
 def cv_start(R1, t1, R0, t0):
     Rd = R1 @ R0.T
     return Rd @ R1, Rd @ (t1 - t0) + t1
@@ -1241,8 +1611,9 @@ def count_syncs(fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-# kernel name -> (wrapper, its launch counter): the bf16 variants count in
-# their wrapper's ``launches_bf16``
+# kernel name -> (wrapper, its launch counter): the bf16 and mxu variants
+# count in their wrapper's ``launches_bf16``, ``launches_mxu`` and (the
+# backward under both) ``launches_bf16_mxu``
 WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
             "composite32_fwd_ntouch": (tk.composite32_fwd_ntouch,
                                        "launches"),
@@ -1254,7 +1625,13 @@ WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
             "composite32_fwd_bf16": (tk.composite32_fwd, "launches_bf16"),
             "composite32_fwd_ntouch_bf16": (tk.composite32_fwd_ntouch,
                                             "launches_bf16"),
-            "composite32_bwd_bf16": (tk.composite32_bwd, "launches_bf16")}
+            "composite32_bwd_bf16": (tk.composite32_bwd, "launches_bf16"),
+            "composite32_fwd_mxu": (tk.composite32_fwd, "launches_mxu"),
+            "composite32_fwd_ntouch_mxu": (tk.composite32_fwd_ntouch,
+                                           "launches_mxu"),
+            "composite32_bwd_mxu": (tk.composite32_bwd, "launches_mxu"),
+            "composite32_bwd_bf16_mxu": (tk.composite32_bwd,
+                                         "launches_bf16_mxu")}
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
@@ -1415,6 +1792,74 @@ def keyframe_psnrs(slam):
     return out
 
 
+def decode_png(data):
+    """(h, w, 3) uint8 of an 8-bit RGB PNG whose rows use filter type 0,
+    as the port's encoder (gui/headless.py) writes them; raises on a
+    malformed file."""
+    import struct
+    import zlib
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if crc != zlib.crc32(kind + body) & 0xFFFFFFFF:
+            raise ValueError(f"bad CRC in {kind!r}")
+        chunks[kind] = chunks.get(kind, b"") + body
+        pos += 12 + n
+    w, h, depth, ctype = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if depth != 8 or ctype != 2:
+        raise ValueError("not 8-bit RGB")
+    rows = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = rows.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise ValueError("a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def probe_viewer(slam, min_frame=4, timeout_s=600.0):
+    """A thread that waits for ``slam``'s browser viewer, then, once the
+    status reports frame ``min_frame`` or later, fetches /status and one
+    /frame.png over 127.0.0.1 and decodes the PNG. Returns (thread,
+    record dict)."""
+    import threading
+    import urllib.request
+    rec = {}
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read()
+
+    def probe():
+        t0 = time.time()
+        try:
+            while slam.web_viewer is None and time.time() - t0 < timeout_s:
+                time.sleep(0.05)
+            base = f"http://127.0.0.1:{slam.web_viewer.port}"
+            while time.time() - t0 < timeout_s:
+                code, body = get(base + "/status")
+                st = json.loads(body)
+                if st["frame"] >= min_frame:
+                    break
+                time.sleep(0.2)
+            rec.update(status=st, status_code=code)
+            t1 = time.perf_counter()
+            code, body = get(base + "/frame.png?mode=color&follow=1")
+            rec.update(frame_code=code, frame_bytes=len(body),
+                       frame_s=time.perf_counter() - t1)
+            img = decode_png(body)
+            rec.update(frame_shape=list(img.shape),
+                       frame_mean=float(img.mean()))
+        except Exception as e:      # reported and gated by the caller
+            rec["error"] = repr(e)
+
+    th = threading.Thread(target=probe, daemon=True)
+    th.start()
+    return th, rec
+
+
 def run_slam(name, dev, dataset, out_root, training, required):
     """One SLAM run through the driver (SLAM.run with the rendering eval
     and SLAM_REFINE_ITERS of color refinement), launch counts from 0.
@@ -1429,8 +1874,10 @@ def run_slam(name, dev, dataset, out_root, training, required):
     from gs_slam_analytica_jacobian_tpu_torch.utils import ply
     save_dir = os.path.join(out_root, name)
     os.makedirs(save_dir, exist_ok=True)
+    # the mxu run serves the browser viewer, as slam_main.py --viewer 0
+    viewer = training.get("kernel_mxu", False)
     slam = SLAM(slam_config(**training), save_dir=save_dir, dataset=dataset,
-                device=dev)
+                viewer_port=0 if viewer else None, device=dev)
     track_ovf = dict(accepted=0, calls=0, last=0)
     inner_track = tracking.track_frame_pyr
     inner_fe_track = slam.frontend.track
@@ -1456,6 +1903,8 @@ def run_slam(name, dev, dataset, out_root, training, required):
     slam.backend.color_refinement = refine_hook
     tracking.track_frame_pyr = track_hook
     reset_counts()
+    if viewer:
+        probe, probed = probe_viewer(slam)
     try:
         t0 = time.perf_counter()
         res = slam.run(eval_rendering=True,
@@ -1464,6 +1913,8 @@ def run_slam(name, dev, dataset, out_root, training, required):
         wall = time.perf_counter() - t0
     finally:
         tracking.track_frame_pyr = inner_track
+    if viewer:
+        probe.join(timeout=60)
     counts = read_counts(name, required)
     with uncounted():
         psnr_after = keyframe_psnrs(slam)
@@ -1501,8 +1952,17 @@ def run_slam(name, dev, dataset, out_root, training, required):
                                                     "run_summary.json")),
         ply_reloads_same=ply_same, prewarm_s=slam.frontend.prewarm_wall_s,
         refine_iters=SLAM_REFINE_ITERS, launches=counts, card=card_line())
+    if viewer:
+        rec["viewer"] = probed
     print(f"{name} " + json.dumps(rec), flush=True)
-    ate, limit = rec["ate_m"], min(SLAM_ATE_MAX_M, SLAM_ATE_REG_M[name])
+    if viewer and (probed.get("error") or probed.get("frame_code") != 200
+                   or probed.get("frame_shape") != [slam.cam.height,
+                                                    slam.cam.width, 3]
+                   or probed.get("status", {}).get("frame", -1) < 0):
+        fail(f"{name}: the viewer did not serve a status and a decodable "
+             f"frame during the run: {probed}")
+    ate = rec["ate_m"]
+    limit = min(SLAM_ATE_MAX_M, SLAM_ATE_REG_M.get(name, SLAM_ATE_MAX_M))
     if ate is None or not np.isfinite(ate) or ate >= limit:
         fail(f"{name}: ATE {ate} m, limit {limit} m")
     if rec["n_keyframes"] < SLAM_MIN_KF:
@@ -1519,8 +1979,8 @@ def run_slam(name, dev, dataset, out_root, training, required):
 
 
 def phase_slam(dev):
-    """The three SLAM paths on one pre-rendered dataset; slam-bf16 within
-    SLAM_BF16_ATE_REL of slam's ATE."""
+    """The SLAM paths on one pre-rendered dataset; slam-bf16 and slam-mxu
+    within SLAM_BF16_ATE_REL of slam's ATE."""
     from gs_slam_analytica_jacobian_tpu_torch.utils.datasets import \
         load_dataset
     dataset = load_dataset(slam_config())
@@ -1536,10 +1996,12 @@ def phase_slam(dev):
         recs[name] = run_slam(name, dev, dataset, out_root, training,
                               required)
         launches[name] = recs[name]["launches"]
-    a, b = recs["slam"]["ate_m"], recs["slam-bf16"]["ate_m"]
-    if a is not None and b is not None and b > SLAM_BF16_ATE_REL * a:
-        fail(f"slam-bf16: ATE {b:.6f} m above {SLAM_BF16_ATE_REL} x slam's "
-             f"{a:.6f} m")
+    a = recs["slam"]["ate_m"]
+    for other in ("slam-bf16", "slam-mxu"):
+        b = recs[other]["ate_m"]
+        if a is not None and b is not None and b > SLAM_BF16_ATE_REL * a:
+            fail(f"{other}: ATE {b:.6f} m above {SLAM_BF16_ATE_REL} x "
+                 f"slam's {a:.6f} m")
     return recs, launches
 
 
@@ -1852,6 +2314,8 @@ def run(dev):
     cases16, b4_cases = phase_kernels16(dev, gm, cam, gt1)
     render16_vs_32(dev, gm, cam)
     cases_bf16, b2_bf16_cases = phase_kernels_bf16(dev, gm, cam, gt1)
+    cases_mxu, b2_mxu_cases, _ = phase_kernels_mxu(dev, gm, cam, gt1)
+    abl = phase_abl16(dev)
 
     # phase 3: the main path, with launch counts from 0
     reset_counts()
@@ -1914,6 +2378,8 @@ def run(dev):
     # render call has it) at the ground-truth poses: the one path of B1-bf16
     # (the trackers' keyframing render stays f32, as in the reference)
     launches["render-bf16"] = render_bf16_path(dev, gm, cam, poses, gts)
+    # render-mxu: likewise with mxu, B1-mxu's path
+    launches["render-mxu"] = render_mxu_path(dev, gm, cam, poses)
 
     # phase 4: the exact-gradient paths, each with launch counts from 0
     all_kernels = KERNELS32
@@ -1949,21 +2415,40 @@ def run(dev):
     print("exact-pyramid-H-carried " + json.dumps(hc), flush=True)
     check_path("exact-pyramid-H-carried", hc, max_err_m=EXACT_H_MAX_ERR_M)
 
-    # the bf16 tracker paths: the main path's schedule and the exact
-    # pyramid with kernel_bf16, each beside its f32 run
+    # the bf16 and mxu tracker paths: the main path's schedule and the
+    # exact pyramid with kernel_bf16 or kernel_mxu (the exact pyramid also
+    # with both), each beside its f32 run; none may launch the f32 B1' or
+    # B2 (the keyframing render stays f32, B1)
+    exact_kw = dict(carry_H=False, reuse_plans=False)
     for name, kw, base, limit, reps, two_sided, required, track_kw in (
-            ("main-path-bf16", BENCH_KW, rec, 1e-3, BF16_REPS, True,
+            ("main-path-bf16", dict(BENCH_KW, kernel_bf16=True), rec, 1e-3,
+             BF16_REPS, True,
              ("composite32_fwd_bf16", "composite32_fwd_ntouch"), {}),
-            ("exact-pyramid-bf16", EXACT_KW, exa, EXACT_MAX_ERR_M, 1, False,
+            ("exact-pyramid-bf16", dict(EXACT_KW, kernel_bf16=True), exa,
+             EXACT_MAX_ERR_M, 1, False,
              ("composite32_fwd_bf16", "composite32_bwd_bf16",
-              "composite32_fwd_ntouch"),
-             dict(carry_H=False, reuse_plans=False))):
+              "composite32_fwd_ntouch"), exact_kw),
+            ("main-path-mxu", dict(BENCH_KW, kernel_mxu=True), rec, 1e-3,
+             BF16_REPS, True,
+             ("composite32_fwd_mxu", "composite32_fwd_ntouch"), {}),
+            ("exact-pyramid-mxu", dict(EXACT_KW, kernel_mxu=True), exa,
+             EXACT_MAX_ERR_M, 1, False,
+             ("composite32_fwd_mxu", "composite32_bwd_mxu",
+              "composite32_fwd_ntouch"), exact_kw),
+            # both flags: the MXU falloff with the bfloat16 gradient
+            # products in the exact iterations (B2-bf16-mxu's path)
+            ("exact-pyramid-bf16-mxu",
+             dict(EXACT_KW, kernel_bf16=True, kernel_mxu=True), exa,
+             EXACT_MAX_ERR_M, 1, False,
+             ("composite32_fwd_mxu", "composite32_bwd_bf16_mxu",
+              "composite32_fwd_ntouch"), exact_kw)):
         reset_counts()
-        rb = run_schedule(name, dev, gm, cam, gts, poses,
-                          dict(kw, kernel_bf16=True), gt_overflow, reps=reps,
-                          **track_kw)
+        rb = run_schedule(name, dev, gm, cam, gts, poses, kw, gt_overflow,
+                          reps=reps, **track_kw)
         launches[name] = read_counts(name, required, forbidden=(
             "composite32_fwd", "composite32_bwd"))
+        kw = {k: v for k, v in kw.items()
+              if k not in ("kernel_bf16", "kernel_mxu")}
         with uncounted():
             again = run_schedule(f"{name}-f32-again", dev, gm, cam, gts,
                                  poses, kw, gt_overflow, reps=reps,
@@ -2097,6 +2582,50 @@ def run(dev):
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
         bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
         shape=c["shape"]))
+    # the mxu variants likewise: the s=2 tracker plan (forward) and the
+    # s=1 polish plan (backward, loss cotangent), the f32 kernel's time on
+    # the same plan beside each; the bound charges the tensor cores' share
+    # at the TF32 peak beside the CUDA cores' at the FP32 peak
+    for name, with_nt, line in (("composite32_fwd_mxu", False, 662),
+                                ("composite32_fwd_ntouch_mxu", True, 642)):
+        c = next(c for c in cases_mxu if c["case"] == "room_s2_mxu"
+                 and c["with_ntouch"] == with_nt and not c["nt_weight"])
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "tile_kernel2_fwd.cu",
+            replaces=f"{pallas}:{line} (mxu=True, _mxu_power :96-128, "
+                     "log-space T :279-289)",
+            launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
+            p999_abs_err=c["p999_abs_err"], ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"],
+            bound_tensor_core_ms=c["bound_tensor_core_ms"], library_ms=None,
+            f32_ms=c["f32_ms"], shape=c["shape"]))
+    for name, case in (("composite32_bwd_mxu", "room_s1_polish_mxu"),
+                       ("composite32_bwd_bf16_mxu",
+                        "room_s1_polish_bf16_mxu")):
+        c = next(c for c in b2_mxu_cases if c["case"] == case
+                 and c["cotangent"] == "loss")
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + "tile_kernel2_bwd.cu",
+            replaces=f"{pallas}:699 (mxu=True, :387-398"
+                     + (", bf16 :488-508)" if "bf16" in name else ")"),
+            launches=total[name], max_abs_err=c["max_abs_err"],
+            max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
+            shape=c["shape"]))
+    # B5: one entry per variant, at the script's shape; launches from the
+    # script's own run (phase_abl16)
+    for v, r in abl.items():
+        kernels.append(dict(
+            name=f"abl16_{v}", route="cuda", source=csrc + "abl16.cu",
+            replaces="scripts/abl16.py:237 (make_kernel :55, "
+                     f"variant {v})", launches=r["launches"],
+            max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
+            ms=r["ms"],
+            us_per_chunk=r["us_per_chunk"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            shape="1216x704"))
     print(f"launches by path: {json.dumps(launches)}", flush=True)
     check_failures()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -23,8 +23,8 @@
 // d_rgb, d_depth = w dC, w dD. Skipped cells contribute exactly 0.
 //
 // What bounds it on the H100: arithmetic and the per-pair reduction, as
-// for the 32x32 backward: each walked cell recomputes the forward (~30
-// FP32 operations), each included cell evaluates the gradient and adds ten
+// for the 32x32 backward: each walked cell recomputes the forward's tests
+// (~25 FP32 operations), each included cell evaluates the gradient and adds ten
 // values into its pair's row. What the design does about it: one CTA of
 // 256 threads per 16x16 tile, one thread per pixel (a warp holds two
 // pixel rows), per-cell straight-line FP32 code; pair rows staged per

@@ -21,8 +21,9 @@
 // The TPU kernel's 2x2 subtile groups, DMA ring, Hillis-Steele scans,
 // block-permuted image and chunk-counter channel have no counterpart here.
 //
-// What bounds it on the H100: arithmetic, as for the 32x32 kernel (~30
-// FP32 operations per walked (pair, pixel) cell against one 64-byte pair
+// What bounds it on the H100: arithmetic, as for the 32x32 kernel (~25
+// FP32 operations per walked (pair, pixel) cell, ~13 more per cell that
+// passes the skip tests, against one 64-byte pair
 // row shared by the tile's 256 pixels). A 16-px plan holds more pairs than
 // a 32-px one but each pair walks 256 cells instead of 1024, so the cells
 // per frame fall. What the design does about it: one CTA of 256 threads

@@ -23,8 +23,9 @@
 // d_rgb, d_depth = w dC, w dD. Skipped cells contribute exactly 0.
 //
 // What bounds it on the H100: arithmetic and the per-pair reduction. Each
-// walked (pair, pixel) cell recomputes the forward (~30 FP32 operations),
-// evaluates the gradient (~40) and contributes ten values to its pair's
+// walked (pair, pixel) cell recomputes the forward's tests (~25 FP32
+// operations); an included one steps T, evaluates the gradient (~50) and
+// contributes ten values to its pair's
 // row; the bytes (64-byte pair rows in and out, ten image planes) are a
 // small fraction of the 3.35 TB/s budget. What the design does about it:
 // one CTA per tile and one thread per pixel as in the forward, so the
@@ -49,10 +50,30 @@
 // rounded to bfloat16 (bf16_falloff.cuh), each widened to f32 before its
 // pixel sum; d_opa, d_rgb and d_depth stay f32. Its bound is counted as
 // the f32 kernel's (no bf16x2 packing; the conversions add operations).
+//
+// The mxu variants (C entries composite32_bwd_mxu and
+// composite32_bwd_bf16_mxu) replace the same call site with mxu=True
+// (make_backward_kernel :387-398): only the falloff changes. Per chunk of
+// 32 pair rows, 32 threads write the G8 rows to shared memory and each
+// warp takes its pixels' powers from the tensor cores, 16 pairs at a time
+// (mxu_falloff.cuh, three TF32 WMMA passes, clamped to <= 0; 2 KB of power block and
+// 1 KB of P8 a warp, 97 KB of dynamic shared memory a CTA with the G8
+// rows). Everything else is B2's walk: the recomputed transmittance stays
+// the linear product T (1 - alpha), as the reference's backward scans it
+// (_scan_mul, :447-449), not the forward's log space; T_final and the
+// other forward planes come from the mxu forward; dx, dy of the gradient
+// products stay the direct mx - x, my - y (:386-390); a_un = opa
+// expf(power) in f32. Under bf16 as well (composite32_bwd_bf16_mxu) the
+// quadratic-form products are bf16_falloff.cuh's rounded ones: the
+// reference's _chunk_terms gives mxu_ctx precedence over bf16 for the
+// falloff (:157-159) while the products' bf16 branch (:488-508) still
+// runs. Bound: as B2, plus the tensor-core term (3 x 2 x 8 FLOP a walked
+// cell) at the TF32 peak.
 
 #include <cuda_runtime.h>
 
 #include "bf16_falloff.cuh"
+#include "mxu_falloff.cuh"
 
 namespace {
 
@@ -74,7 +95,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <bool kBF16>
+// the dynamic shared memory of the mxu variants
+using MxuSmem = mxu_falloff::Smem<kChunk, kWarps>;
+
+template <bool kBF16, bool kMXU>
 __global__ void __launch_bounds__(kThreads)
 composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
                        const int2* __restrict__ ranges,   // (n_tiles,)
@@ -88,6 +112,7 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
                        int W, int H, int n_tx) {
   __shared__ float4 s_feat[kChunk][4];
   __shared__ float s_part[kWarps][kChunk][kRows];
+  extern __shared__ __align__(128) float s_mxu[];  // kMXU only
 
   const int tile = blockIdx.x;
   const int tx = tile % n_tx;
@@ -122,6 +147,15 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
   float pA = 0.0f;
   bool done = !inside;
 
+  // mxu: the chunk's G8 rows, this warp's P8 and power block
+  const MxuSmem mxu(s_mxu, warp);
+  const float cx_t = mxu_falloff::tile_centre(tx);
+  const float cy_t = mxu_falloff::tile_centre(ty);
+  if constexpr (kMXU) {
+    mxu_falloff::p8_column(px - cx_t, py - cy_t, mxu.p8, lane);
+    __syncwarp();
+  }
+
   for (int base = rg.x; base < rg.y; base += kChunk) {
     const int n = min(kChunk, rg.y - base);
     __syncthreads();  // the previous chunk's rows and partials are consumed
@@ -130,8 +164,15 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
           feat[static_cast<size_t>(base + (tid >> 2)) * 4 + (tid & 3)];
     }
     __syncthreads();
+    if constexpr (kMXU) {
+      mxu_falloff::fill_g8<kChunk>(mxu.g8, &s_feat[0][0], n, tid, cx_t, cy_t);
+      __syncthreads();
+    }
 
     for (int k = 0; k < n; ++k) {
+      if constexpr (kMXU) {
+        mxu_falloff::block_step(k, !done, mxu.g8, mxu.p8, mxu.pow);
+      }
       float v[kRows];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) v[j] = 0.0f;
@@ -144,7 +185,9 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
         const float dx = f0.x - px;
         const float dy = f0.y - py;
         float power;
-        if constexpr (kBF16) {
+        if constexpr (kMXU) {
+          power = mxu_falloff::power_at(mxu.pow, k, lane);
+        } else if constexpr (kBF16) {
           power = bf16_falloff::power(dx, dy, f0.z, f0.w, f1.x);
         } else {
           power = -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
@@ -152,8 +195,8 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
         const bool rect_ok = (t16x >= f2.z) && (t16x < f3.x) &&
                              (t16y >= f2.w) && (t16y < f3.y);
         if (rect_ok && power <= 0.0f) {
-          const float a_un = kBF16 ? bf16_falloff::a_un(f1.y, power)
-                                   : f1.y * expf(power);
+          const float a_un = (kBF16 && !kMXU) ? bf16_falloff::a_un(f1.y, power)
+                                              : f1.y * expf(power);
           const float alpha = fminf(kAlphaMax, a_un);
           if (alpha >= kAlphaMin) {
             const float T_incl = T * (1.0f - alpha);
@@ -216,14 +259,21 @@ composite32_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
   }
 }
 
-template <bool kBF16>
+template <bool kBF16, bool kMXU>
 int launch(const void* feat, const void* ranges, const void* color,
            const void* depth, const void* final_T, const void* d_color,
            const void* d_depth, const void* d_T, void* dfeat, int n_tiles,
            int n_tx, int W, int H, void* stream) {
   if (n_tiles <= 0) return 0;
-  composite32_bwd_kernel<kBF16><<<n_tiles, kThreads, 0,
-                                  static_cast<cudaStream_t>(stream)>>>(
+  size_t smem = 0;
+  if constexpr (kMXU) {
+    smem = MxuSmem::kBytes;
+    const cudaError_t e =
+        mxu_falloff::opt_in_smem<composite32_bwd_kernel<kBF16, kMXU>>(smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  composite32_bwd_kernel<kBF16, kMXU><<<n_tiles, kThreads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(feat), static_cast<const int2*>(ranges),
       static_cast<const float*>(color), static_cast<const float*>(depth),
       static_cast<const float*>(final_T), static_cast<const float*>(d_color),
@@ -234,28 +284,26 @@ int launch(const void* feat, const void* ranges, const void* color,
 
 }  // namespace
 
-// C entries, loaded with ctypes: composite32_bwd (f32) and
-// composite32_bwd_bf16 (the bfloat16 bodies). feat: (B_al, 16) f32,
+// C entries, loaded with ctypes: composite32_bwd (f32),
+// composite32_bwd_bf16 (the bfloat16 bodies), composite32_bwd_mxu (the
+// tensor-core falloff) and composite32_bwd_bf16_mxu (the tensor-core
+// falloff with the bfloat16 gradient products). feat: (B_al, 16) f32,
 // 16-byte aligned; ranges: (n_tiles, 2) int32; color, d_color: (3, H, W)
 // f32; depth, final_T, d_depth, d_T: (H, W) f32; dfeat: (B_al, 16) f32,
 // zero-filled by the caller (rows a tile never reaches must read 0).
 // Launch on ``stream`` and return cudaGetLastError().
-extern "C" int composite32_bwd(const void* feat, const void* ranges,
-                               const void* color, const void* depth,
-                               const void* final_T, const void* d_color,
-                               const void* d_depth, const void* d_T,
-                               void* dfeat, int n_tiles, int n_tx, int W,
-                               int H, void* stream) {
-  return launch<false>(feat, ranges, color, depth, final_T, d_color,
-                       d_depth, d_T, dfeat, n_tiles, n_tx, W, H, stream);
-}
+#define BWD_ENTRY(NAME, BF16, MXU)                                          \
+  extern "C" int NAME(const void* feat, const void* ranges,                 \
+                      const void* color, const void* depth,                 \
+                      const void* final_T, const void* d_color,             \
+                      const void* d_depth, const void* d_T, void* dfeat,    \
+                      int n_tiles, int n_tx, int W, int H, void* stream) {  \
+    return launch<BF16, MXU>(feat, ranges, color, depth, final_T, d_color,  \
+                             d_depth, d_T, dfeat, n_tiles, n_tx, W, H,      \
+                             stream);                                       \
+  }
 
-extern "C" int composite32_bwd_bf16(const void* feat, const void* ranges,
-                                    const void* color, const void* depth,
-                                    const void* final_T, const void* d_color,
-                                    const void* d_depth, const void* d_T,
-                                    void* dfeat, int n_tiles, int n_tx,
-                                    int W, int H, void* stream) {
-  return launch<true>(feat, ranges, color, depth, final_T, d_color, d_depth,
-                      d_T, dfeat, n_tiles, n_tx, W, H, stream);
-}
+BWD_ENTRY(composite32_bwd, false, false)
+BWD_ENTRY(composite32_bwd_bf16, true, false)
+BWD_ENTRY(composite32_bwd_mxu, false, true)
+BWD_ENTRY(composite32_bwd_bf16_mxu, true, true)

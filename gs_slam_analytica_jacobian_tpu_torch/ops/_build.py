@@ -32,22 +32,32 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # kernel library name -> (source file, {C entry: argtypes}); a source may
-# export several entries (the bf16 variants beside the f32 kernels)
+# export several entries (the bf16 and mxu variants beside the f32
+# kernels)
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FWD_ARGS = [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
 _BWD_ARGS = [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]
+_ABL16_ARGS = [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
 LIBRARIES = {
     "tile_kernel2_fwd": ("tile_kernel2_fwd.cu",
                          {"composite32_fwd": _FWD_ARGS,
-                          "composite32_fwd_bf16": _FWD_ARGS}),
+                          "composite32_fwd_bf16": _FWD_ARGS,
+                          "composite32_fwd_mxu": _FWD_ARGS,
+                          "mxu_power_tile": [_VP, _INT, _INT, _INT, _VP,
+                                             _VP]}),
     "tile_kernel2_bwd": ("tile_kernel2_bwd.cu",
                          {"composite32_bwd": _BWD_ARGS,
-                          "composite32_bwd_bf16": _BWD_ARGS}),
+                          "composite32_bwd_bf16": _BWD_ARGS,
+                          "composite32_bwd_mxu": _BWD_ARGS,
+                          "composite32_bwd_bf16_mxu": _BWD_ARGS}),
     "tile_kernel16_fwd": ("tile_kernel16_fwd.cu",
                           {"composite16_fwd": _FWD_ARGS}),
     "tile_kernel16_bwd": ("tile_kernel16_bwd.cu",
                           {"composite16_bwd": _BWD_ARGS}),
+    "abl16": ("abl16.cu", {f"abl16_{v}": _ABL16_ARGS for v in (
+        "full", "noexp", "noscan", "nomxu", "notrans", "minimal", "dyn",
+        "prodbody")}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -12,10 +12,11 @@ On CUDA tensors the compositing runs the hand-written kernels; on CPU
 tensors their plain PyTorch versions. ``ops/renderer_ref.py`` is the
 oracle it is tested against.
 
-``bf16`` runs the 32x32 kernels' bfloat16 bodies (forward and backward).
-``mxu``, not ported yet, raises NotImplementedError instead of being
-ignored, and so does ``bf16`` beside ``tile16`` (the reference's tile16
-branch silently drops both flags).
+``bf16`` runs the 32x32 kernels' bfloat16 bodies and ``mxu`` their MXU
+bodies (forward and backward; in the forward mxu takes precedence). The
+16x16 kernels have neither: ``bf16`` or ``mxu`` beside ``tile16`` raises
+NotImplementedError (the reference's tile16 branch silently drops both
+flags).
 """
 
 from __future__ import annotations
@@ -34,14 +35,10 @@ from .tile_kernel16 import TS, K16, composite16, grid_dims16
 
 
 def _not_ported(mxu: bool, bf16: bool, tile16: bool):
-    if mxu:
+    if tile16 and (bf16 or mxu):
         raise NotImplementedError(
-            "mxu=True is not ported yet: the MXU kernel variants come in a "
-            "later slice of the port")
-    if bf16 and tile16:
-        raise NotImplementedError(
-            "bf16=True beside tile16=True: the 16x16 kernels have no "
-            "bfloat16 bodies (the reference's tile16 branch drops the flag)")
+            "bf16 or mxu beside tile16: the 16x16 kernels have no bfloat16 "
+            "or MXU bodies (the reference's tile16 branch drops the flags)")
 
 
 def pack_table(prep: Preprocessed) -> torch.Tensor:
@@ -147,7 +144,7 @@ def render(
     else:
         n_tx, n_ty = grid_dims(width, height)
         out = composite32(feat, plan.ranges, n_tx, n_ty, width, height,
-                          need_n_touched, nt_weight, bf16)
+                          need_n_touched, nt_weight, bf16, mxu)
 
     color = out.color_sum + out.final_T[None] * bg[:, None, None]
     opacity = 1.0 - out.final_T

@@ -4,8 +4,9 @@ thread via parallel/pipeline.py), and evaluates: FPS, final ATE,
 rendering metrics with color refinement, the map's ply, headless render
 snapshots, the run summary and the optional live PNG stream.
 
-``device=None`` means CUDA (raises without a GPU). The browser viewer
-(``viewer_port``) is not ported yet and raises NotImplementedError.
+``device=None`` means CUDA (raises without a GPU). ``viewer_port`` serves
+the browser viewer (gui/web.py) while the system runs; paused from the
+browser, the single-thread loop waits before its next frame.
 """
 
 from __future__ import annotations
@@ -33,14 +34,13 @@ class SLAM:
                  live_interval: float = 0.0,
                  viewer_port: Optional[int] = None, dataset=None,
                  device=None):
-        if viewer_port is not None:
-            raise NotImplementedError(
-                "the browser viewer (viewer_port, gui/web.py) is not ported "
-                "yet (it comes in a later slice of the port); use "
-                "live_interval for headless PNG snapshots")
         self.device = resolve_device(device)
         self.config = config
         self.save_dir = save_dir
+        # --viewer PORT: interactive browser viewer (gui/web.py), the
+        # displayless counterpart of the reference's Open3D window
+        self.viewer_port = viewer_port
+        self.web_viewer = None
         # --live: stream headless-viewer PNGs of the current map at this
         # interval while the system runs (the displayless stand-in for the
         # reference's interactive window, gui/slam_gui.py:540-571)
@@ -72,18 +72,30 @@ class SLAM:
             n_frames, len(self.dataset))
         t0 = time.time()
         live_stop = self._start_live_stream()
-        if self.use_threads:
-            import queue as _q
+        if self.viewer_port is not None:
+            from ..gui.web import WebViewer
+            self.web_viewer = WebViewer(self, self.viewer_port).start()
+        try:
+            if self.use_threads:
+                import queue as _q
 
-            from ..parallel.pipeline import run_pipelined
-            self.control_queue = _q.Queue()
-            run_pipelined(self.frontend, self.backend, N,
-                          control_queue=self.control_queue)
-        else:
-            for idx in range(N):
-                self.frontend.process_frame(idx)
-        if live_stop is not None:
-            live_stop.set()
+                from ..parallel.pipeline import run_pipelined
+                self.control_queue = _q.Queue()
+                run_pipelined(self.frontend, self.backend, N,
+                              control_queue=self.control_queue)
+            else:
+                for idx in range(N):
+                    # viewer pause point (the reference frontend's
+                    # per-frame pause poll, slam_frontend.py:333-343)
+                    while (self.web_viewer is not None
+                           and self.web_viewer.paused):
+                        time.sleep(0.05)
+                    self.frontend.process_frame(idx)
+        finally:
+            if live_stop is not None:
+                live_stop.set()
+            if self.web_viewer is not None:
+                self.web_viewer.stop()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.time() - t0

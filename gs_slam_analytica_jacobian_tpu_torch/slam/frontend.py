@@ -210,8 +210,8 @@ class FrontEnd:
         self._H_age = 0
         # the tracking renders on the bfloat16 kernel bodies (opt-in)
         self.kernel_bf16 = bool(T.get("kernel_bf16", False))
-        # MXU falloff + log-space transmittance: not ported, the tracker
-        # raises NotImplementedError
+        # the tracking renders on the MXU kernel bodies (tensor-core
+        # falloff + log-space transmittance; opt-in)
         self.kernel_mxu = bool(T.get("kernel_mxu", False))
         # cross-frame pair-plan reuse: hand the previous frame's per-level
         # plans back to the tracker (plan_in) and rebuild every N frames.

@@ -23,8 +23,9 @@ tiles and the 16x16 kernels. ``track_frame_pyr`` takes ``kernel_bf16``
 bfloat16 bodies; the keyframing render stays f32), ``track_mask`` (the
 frontend's visibility cull: plans only over the masked Gaussians) and
 ``level_subset`` (per-level texture-ranked tile subsets for the IRLS
-phase). Not ported yet: ``kernel_mxu`` raises NotImplementedError, naming
-the later slice.
+phase) and ``kernel_mxu`` (every level render, IRLS and exact, on the
+32x32 kernels' MXU bodies; the keyframing render stays without). Neither
+kernel flag goes with ``tile16`` (NotImplementedError).
 """
 
 from __future__ import annotations
@@ -40,12 +41,6 @@ from ..ops import losses
 from ..ops.lie import pose_matrix, se3_exp
 from ..ops.tile_kernel2 import TPX, TPY, grid_dims
 from .render_api import make_render_plan, render
-
-
-def _not_ported(what: str, later: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet ({later} comes in a later slice of the "
-        "port)")
 
 
 class TrackAdamState(NamedTuple):
@@ -281,6 +276,7 @@ def _gn_level(
     fd_eps: float = 1e-3,
     tile16: bool = False,
     bf16: bool = False,
+    mxu: bool = False,
     subset_frac: float = 1.0,
     track_mask=None,
 ):
@@ -301,7 +297,8 @@ def _gn_level(
     normal matrix (Jc None: H fixed, g from the flow Jacobian) or cached
     probe Jacobians (H re-assembled with current weights).
 
-    ``bf16`` renders on the bfloat16 kernel bodies; ``track_mask`` plans
+    ``bf16`` renders on the bfloat16 kernel bodies, ``mxu`` on the MXU
+    ones (every render of the level, IRLS and exact); ``track_mask`` plans
     only over the masked Gaussians (``extra_active``); ``subset_frac`` < 1
     keeps the IRLS renders to the top fraction of 32x32 tiles ranked by
     loss-weighted constraint mass (``_subset_plan``), while the exact
@@ -335,7 +332,7 @@ def _gn_level(
                       bg, use_oracle=use_oracle, pair_capacity=pair_capacity,
                       plan=plan if plan_ is None else plan_,
                       need_n_touched=False, bf16=bf16, tile16=tile16,
-                      low_pass=low_pass, device=dev)
+                      mxu=mxu, low_pass=low_pass, device=dev)
 
     def loss_fn(ea_, eb_, R_, t_):
         out = render_at(zeros6, R_, t_, plan_irls)
@@ -590,20 +587,20 @@ def track_frame_pyr(
     ``final_level`` on that level's plan and fills n_touched (under
     ``nt_weight``, at the blend-weight threshold). ``kernel_bf16`` runs
     every level render (IRLS and exact) on the bfloat16 kernel bodies,
-    ``track_mask`` plans only over the masked Gaussians (the frontend's
-    visibility cull) and ``level_subset`` gives each level's IRLS tile
-    fraction (``_gn_level``).
+    ``kernel_mxu`` on the MXU bodies (with ``kernel_bf16`` too: the MXU
+    falloff and the backward's bfloat16 products), ``track_mask`` plans
+    only over the masked Gaussians (the frontend's visibility cull) and
+    ``level_subset`` gives each level's IRLS tile fraction
+    (``_gn_level``).
 
     Returns (R, t, ea, eb, total_iters, RenderOutput, median_depth,
     H_out, per-level overflow, final num_pairs, per-level num_pairs,
     plans_out). ``device=None`` means CUDA."""
     del lr_rot, lr_trans, max_iters
-    if kernel_mxu:
-        _not_ported("kernel_mxu", "the MXU kernel variants")
-    if kernel_bf16 and tile16 and not use_oracle:
+    if (kernel_bf16 or kernel_mxu) and tile16 and not use_oracle:
         raise NotImplementedError(
-            "kernel_bf16 beside tile16: the 16x16 kernels have no bfloat16 "
-            "bodies")
+            "kernel_bf16 or kernel_mxu beside tile16: the 16x16 kernels "
+            "have no bfloat16 or MXU bodies")
     dev = resolve_device(device)
     _check_frame(dev, gm, cam_template, R0, t0, gt_image, gt_depth,
                  grad_mask, bg)
@@ -670,7 +667,7 @@ def track_frame_pyr(
             sigma_in=sigma_prev, step_cap=step_cap, exact_iters=exact_l,
             plan_in=None if plan_in is None else plan_in[li],
             use_oracle=use_oracle, fd_eps=fd_eps, tile16=tile16,
-            bf16=kernel_bf16,
+            bf16=kernel_bf16, mxu=kernel_mxu,
             subset_frac=(1.0 if level_subset is None
                          else float(level_subset[li])),
             track_mask=track_mask)

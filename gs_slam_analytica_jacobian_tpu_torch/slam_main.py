@@ -3,7 +3,7 @@ repository's ``slam.py``).
 
     python -m gs_slam_analytica_jacobian_tpu_torch.slam_main \\
         --config configs/synthetic/smoke.yaml [--eval] [--frames N] \\
-        [--live SEC] [--device cpu]
+        [--live SEC] [--viewer PORT] [--device cpu]
 
 Runs on the GPU unless ``--device`` names another device (without a GPU
 and without ``--device cpu`` it raises). There is no compile cache to
@@ -28,6 +28,9 @@ def main(argv=None):
     parser.add_argument("--live", type=float, default=0.0, metavar="SEC",
                         help="stream headless-viewer PNGs of the evolving "
                              "map to <save_dir>/live every SEC seconds")
+    parser.add_argument("--viewer", type=int, default=None, metavar="PORT",
+                        help="serve the interactive browser viewer on "
+                             "http://127.0.0.1:PORT/ (0 = auto port)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: cuda; 'cpu' runs the "
                              "kernels' plain PyTorch versions)")
@@ -55,7 +58,7 @@ def main(argv=None):
     from .slam.driver import SLAM
 
     slam = SLAM(config, save_dir=save_dir, live_interval=args.live,
-                device=args.device)
+                viewer_port=args.viewer, device=args.device)
     results = slam.run(
         n_frames=args.frames,
         eval_rendering=config["Results"].get("eval_rendering", False))

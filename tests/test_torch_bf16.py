@@ -24,7 +24,11 @@ Tracker: track_frame_pyr(kernel_bf16=True) on the small room scene of
 tests/test_torch_tracking.py (levels (2, 1), iterations (4, 6), the last
 2 of the full-resolution level exact, so B1'-bf16 and B2-bf16 both run)
 lands on the JAX tracker's pose within 1e-4 (R and t), iterations within
-1. The mxu flags, and bf16 beside tile16, still raise.
+1. bf16 beside tile16 still raises (and so does mxu beside tile16); bf16
+beside mxu runs the MXU forward (the reference's mxu_ctx takes precedence
+over bf16 for the falloff), so its images equal mxu's alone, while the
+backward keeps the bfloat16 products (held against JAX in
+tests/test_torch_mxu.py).
 """
 
 import os
@@ -350,16 +354,33 @@ def test_track_frame_pyr_bf16_matches_jax(jref):
     assert np.abs(res[1].numpy() - jref["track_t_0"]).max() < 5e-3
 
 
-@pytest.mark.parametrize("flags", [dict(mxu=True),
-                                   dict(tile16=True, bf16=True),
-                                   dict(tile16=True, mxu=True)])
+@pytest.mark.parametrize("flags", [dict(tile16=True, bf16=True),
+                                   dict(tile16=True, mxu=True),
+                                   dict(tile16=True, bf16=True, mxu=True)])
 def test_render_flags_that_still_raise(flags):
     with pytest.raises(NotImplementedError):
         _port_render(render_scene(), **flags)
 
 
-@pytest.mark.parametrize("flags", [dict(kernel_mxu=True),
-                                   dict(kernel_bf16=True, tile16=True)])
+def test_render_bf16_beside_mxu():
+    """mxu, once raising, is ported: beside bf16 the forward runs the MXU
+    body alone (images equal to render(mxu=True)), the backward the MXU
+    falloff with the bfloat16 products (dL/dtau moves off mxu's)."""
+    sc = render_scene()
+    outs, grads = [], []
+    for bf16 in (False, True):
+        tau = torch.zeros(6, requires_grad=True)
+        o = _port_render(sc, tau, mxu=True, bf16=bf16, need_n_touched=False)
+        (g,) = torch.autograd.grad(o.color.abs().mean(), tau)
+        outs.append(o)
+        grads.append(g)
+    assert torch.equal(outs[0].color, outs[1].color)
+    assert torch.equal(outs[0].depth, outs[1].depth)
+    assert float((grads[0] - grads[1]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("flags", [dict(kernel_bf16=True, tile16=True),
+                                   dict(kernel_mxu=True, tile16=True)])
 def test_tracker_flags_that_still_raise(flags):
     cam = Camera.create(np.eye(3), np.zeros(3), 60.0, 60.0, (W_T - 1) / 2,
                         (H_T - 1) / 2, W_T, H_T, device="cpu")

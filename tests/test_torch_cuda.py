@@ -1,5 +1,6 @@
 """GPU tests of the port (``cuda`` marker): the CUDA compositing kernels
-(forward and backward, 32x32 and 16x16) against their plain PyTorch
+(forward and backward, 32x32 and 16x16, and the bf16 and mxu bodies of
+the 32x32 ones) and the B5 ablation kernels against their plain PyTorch
 versions, alone and inside a full render and its gradients.
 
 They skip without a GPU. On a machine with one (where JAX need not be
@@ -304,3 +305,124 @@ def test_bf16_backward_kernel_matches_plain(cuda):
         assert float((got[:, col] - ref[:, col]).abs().max()) \
             <= 1e-5 * scale, col
     assert torch.equal(got.any(dim=1), ref.any(dim=1))
+
+
+@pytest.mark.parametrize("with_ntouch,nt_weight",
+                         [(False, False), (True, False), (True, True)])
+def test_mxu_kernel_matches_plain(cuda, with_ntouch, nt_weight):
+    """B1'-mxu / B1-mxu against composite32_plain(mxu=True) on the card:
+    the 3xTF32 tensor-core power against the plain f32 matmul differs by
+    rounding, which a flipped 1/255 or T test can carry to one pixel:
+    images within 1e-3 (depth 5e-3) but for 1e-5 of the values, each
+    within what flipped tests can move (chip_smoke.py MXU_FLIP_TOL; on the
+    H100 0-3 of 0.25-4.1 million values exceeded 1e-3 / 5e-3, by up to
+    1.18e-3 / 5.06e-3), the 99.9th percentile of |difference| of each
+    plane within 1e-4 (color, T) and 5e-4 (depth, chip_smoke.py
+    MXU_P999_TOL: the depth plane read 1.04e-4 here on the H100, NVIDIA
+    H100 80GB HBM3, 700.00 W; this wide-angle 20k-Gaussian scene drives
+    the expanded form's terms to |power| ~2900, where the plain f32
+    expanded form itself sits 1e-4 off float64, and depth spans metres),
+    n_touched mismatches at most 1e-3 of the live pairs."""
+    feat, plan, cam = _room_rows(cuda)
+    W, H = cam.width, cam.height
+    n_tx, n_ty = tk.grid_dims(W, H)
+    wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
+    before = (wrapper.launches, wrapper.launches_mxu)
+    got = tk.composite32(feat, plan.ranges, n_tx, n_ty, W, H, with_ntouch,
+                         nt_weight, mxu=True)
+    ref = tk.composite32_plain(feat, plan.ranges, n_tx, n_ty, W, H,
+                               with_ntouch, nt_weight, mxu=True)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_mxu) == \
+        (before[0], before[1] + 1)
+    for name, a, b, tol, flip, p999 in zip(
+            ("color", "depth", "T"), got[:3], ref[:3], (1e-3, 5e-3, 1e-3),
+            (8e-3, 5e-2, 8e-3), (1e-4, 5e-4, 1e-4)):
+        d = (a - b).abs().flatten()
+        assert int((d > tol).sum()) <= 1e-5 * d.numel(), name
+        assert float(d.max()) <= flip, name
+        q = float(torch.quantile(d, 0.999))
+        assert q <= p999, (name, q)
+    live = int((plan.ranges[:, 1] - plan.ranges[:, 0]).sum())
+    assert int((got.n_touched_pairs != ref.n_touched_pairs).sum()) \
+        <= 1e-3 * live
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_mxu_backward_kernel_matches_plain(cuda, bf16):
+    """B2-mxu and B2-bf16-mxu against composite32_bwd_plain(mxu=True) on
+    the card: each column within 1e-3 of its max (5e-3 under bf16), and
+    under bf16 the bfloat16 products took effect: the rows differ from
+    B2-mxu's (f32 products) on the same inputs by more than from their
+    plain version (the five quadratic-form columns, Frobenius norm)."""
+    feat, plan, cam = _room_rows(cuda)
+    W, H = cam.width, cam.height
+    n_tx, n_ty = tk.grid_dims(W, H)
+    fwd = tk.composite32_plain(feat, plan.ranges, n_tx, n_ty, W, H,
+                               with_ntouch=False, mxu=True)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cot = torch.randn(5, H, W, generator=g, device=cuda)
+    args = (feat, plan.ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
+            cot[0:3], cot[3], cot[4], n_tx, n_ty, W, H)
+    attr = "launches_bf16_mxu" if bf16 else "launches_mxu"
+    before = getattr(tk.composite32_bwd, attr)
+    got = tk.composite32_bwd(*args, bf16=bf16, mxu=True)
+    ref = tk.composite32_bwd_plain(*args, bf16=bf16, mxu=True)
+    torch.cuda.synchronize()
+    assert getattr(tk.composite32_bwd, attr) == before + 1
+    assert bool(torch.isfinite(got).all())
+    # under bf16 an ulp of power moves G across a bfloat16 rounding
+    # boundary in some cells, and that cell's products by a bfloat16 ulp:
+    # on the H100 (NVIDIA H100 80GB HBM3, 700.00 W) a column of this small
+    # wide-angle scene read 2.4e-3 of its max, hence 5e-3 here (the
+    # room's chip_smoke.py plans read at most 4.3e-4 and are held to 2e-3)
+    tol = 5e-3 if bf16 else 1e-3
+    for col in range(10):
+        scale = float(ref[:, col].abs().max())
+        err = float((got[:, col] - ref[:, col]).abs().max())
+        assert err <= tol * scale, (col, err / scale)
+    if bf16:
+        f32_products = tk.composite32_bwd(*args, mxu=True)
+        effect = float((got[:, :5] - f32_products[:, :5]).norm())
+        gap = float((got[:, :5] - ref[:, :5]).norm())
+        assert effect > gap, (effect, gap)
+
+
+def test_mxu_power_tile_matches_f32(cuda):
+    """csrc/mxu_falloff.cuh alone: one chunk's power block from the
+    tensor cores (3xTF32) within 1e-4 of the f32 G6 @ P6 where the power
+    can matter (>= -20), and within 1e-4 plus two ulps of the power over
+    the block (the two differ by an f32 ulp at |power| ~ 2048, 2.4e-4, as
+    measured on the H100; chip_smoke.py MXU_POWER_TOL)."""
+    feat, plan, cam = _room_rows(cuda)
+    n = (plan.ranges[:, 1] - plan.ranges[:, 0]).cpu()
+    tile = int(torch.argmax(n))
+    s = int(plan.ranges[tile, 0])
+    rows = feat[s:s + min(int(n[tile]), 128)].contiguous()
+    n_tx, _ = tk.grid_dims(cam.width, cam.height)
+    got = tk.mxu_power_tile(rows, tile % n_tx, tile // n_tx)
+    ref = tk.mxu_power_tile_plain(rows, tile % n_tx, tile // n_tx)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    assert float(d[ref >= -20.0].max()) <= 1e-4
+    assert bool((d <= 1e-4 + 2.0 ** -22 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("variant", ["full", "noexp", "noscan", "nomxu",
+                                     "notrans", "minimal", "dyn",
+                                     "prodbody"])
+def test_abl16_kernel_matches_plain(cuda, variant):
+    """B5: each variant's kernel against its plain version on the
+    script's plan and on a plan whose rect16 columns admit every cell,
+    1e-5 relative."""
+    from gs_slam_analytica_jacobian_tpu_torch.scripts import abl16
+    for make, nc in ((abl16.make_inputs, 1), (abl16.make_admitting_inputs,
+                                              2)):
+        feat, ranges = make(4, 3, nc, device=cuda)
+        before = abl16.run.launches[variant]
+        got = abl16.run(feat, ranges, 4, 3, 128, 96, nc, variant)
+        ref = abl16.run_plain(feat, ranges, 4, 3, 128, 96, nc, variant)
+        torch.cuda.synchronize()
+        assert abl16.run.launches[variant] == before + 1
+        assert bool(torch.isfinite(got).all())
+        assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5

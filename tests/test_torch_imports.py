@@ -37,11 +37,13 @@ SYSTEM_MODULES = ("utils.config", "utils.datasets", "utils.eval",
                   "utils.ply", "utils.checkpoints", "utils.state_io",
                   "gui.headless", "slam.frontend", "parallel.pipeline",
                   "slam.driver", "slam_main")
+# the modules of the mxu slice (the browser viewer, the B5 harness)
+MXU_SLICE_MODULES = ("gui.web", "scripts.abl16")
 
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    for m in MAPPING_MODULES + SYSTEM_MODULES:
+    for m in MAPPING_MODULES + SYSTEM_MODULES + MXU_SLICE_MODULES:
         assert f"{PORT.name}.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -173,7 +175,7 @@ def test_system_modules_import_without_optional_packages():
     system's modules import without them (each is imported only where a
     YAML file, an image file, stereo or a plot needs it)."""
     blocked = ("yaml", "PIL", "cv2", "matplotlib")
-    mods = [f"{PORT.name}.{m}" for m in SYSTEM_MODULES]
+    mods = [f"{PORT.name}.{m}" for m in SYSTEM_MODULES + MXU_SLICE_MODULES]
     code = (
         "import importlib, sys\n"
         f"sys.path.insert(0, {str(ROOT)!r})\n"

@@ -157,13 +157,22 @@ def test_weights_carried_across_render_the_same():
 
 
 def test_unported_flags_raise():
-    """mxu is not ported, and the 16x16 kernels have no bf16 bodies: the
-    port raises instead of ignoring them (the reference's tile16 branch
-    silently drops bf16/mxu, ops/renderer_tiled.py:149). bf16 alone is
-    tested in tests/test_torch_bf16.py."""
+    """The 16x16 kernels have no bf16 and no mxu bodies: the port raises
+    instead of ignoring them (the reference's tile16 branch silently drops
+    bf16/mxu, ops/renderer_tiled.py:149). mxu alone is ported: it renders
+    (on the CPU through the plain MXU body, no launch); bf16 alone and mxu
+    alone are held against JAX in tests/test_torch_bf16.py and
+    tests/test_torch_mxu.py."""
     sc = make_scene(np.random.default_rng(3), n=10, W=64, H=32)
     _, targs = _args(sc, np.zeros(6, np.float32))
-    for flags in ({"mxu": True}, {"tile16": True, "mxu": True},
+    for flags in ({"tile16": True, "mxu": True},
                   {"tile16": True, "bf16": True}):
         with pytest.raises(NotImplementedError):
             trt.render(*targs, torch.zeros(3), device="cpu", **flags)
+    from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel2 as ttk
+    before = ttk.composite32_fwd_ntouch.launches_mxu
+    out = trt.render(*targs, torch.zeros(3), device="cpu", mxu=True)
+    ref = trt.render(*targs, torch.zeros(3), device="cpu")
+    assert ttk.composite32_fwd_ntouch.launches_mxu == before
+    assert float((out.color - ref.color).abs().max()) < 1e-3
+    assert float(out.opacity.max()) > 0.1

@@ -118,8 +118,10 @@ def test_cli_without_device_raises_without_gpu(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(RuntimeError, match="CUDA"):
         slam_main.main(["--config", cfg, "--frames", "1"])
-    with pytest.raises(NotImplementedError):
-        SLAM(smoke_config(), viewer_port=0, device="cpu")
+    # the browser viewer is ported: SLAM takes a port and starts the
+    # viewer in run() (tests/test_torch_web_viewer.py drives it)
+    slam = SLAM(smoke_config(), viewer_port=0, device="cpu")
+    assert slam.viewer_port == 0 and slam.web_viewer is None
 
 
 def test_threaded_pipeline_smoke():

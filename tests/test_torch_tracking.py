@@ -270,12 +270,13 @@ def test_track_frame_pyr_tile16_matches_jax(scene):
 
 
 @pytest.mark.parametrize("flag", [
-    dict(kernel_mxu=True), dict(kernel_bf16=True, tile16=True),
-    dict(kernel_mxu=True, tile16=True)])
+    dict(kernel_bf16=True, tile16=True), dict(kernel_mxu=True, tile16=True),
+    dict(kernel_bf16=True, kernel_mxu=True, tile16=True)])
 def test_unported_tracker_options_raise(scene, flag):
-    """kernel_mxu is not ported and the 16x16 kernels have no bf16 bodies
-    (kernel_bf16 and level_subset alone are tested against JAX in
-    tests/test_torch_bf16.py and tests/test_torch_frontend.py)."""
+    """The 16x16 kernels have no bf16 and no mxu bodies (kernel_bf16,
+    kernel_mxu and level_subset alone are tested against JAX in
+    tests/test_torch_bf16.py, tests/test_torch_mxu.py and
+    tests/test_torch_frontend.py; kernel_mxu also below)."""
     sc = scene
     kw = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
               pair_capacity=CAP, levels=(2, 1), level_iters=(1, 1),
@@ -286,6 +287,27 @@ def test_unported_tracker_options_raise(scene, flag):
                             T(sc["t0"]), T(sc["gt_image"]),
                             T(sc["gt_depth"]), T(sc["mask"]), torch.zeros(3),
                             **kw)
+
+
+def test_track_frame_pyr_kernel_mxu_matches_jax(scene):
+    """kernel_mxu, once raising, now runs the MXU bodies: at the raise
+    test's short schedule (one IRLS iteration a level) the port lands on
+    the JAX mxu tracker's pose within 1e-4, without a launch on the
+    CPU."""
+    sc = scene
+    kw = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
+              pair_capacity=CAP, levels=(2, 1), level_iters=(1, 1),
+              level_exact=(0, 0), curv="flow", kernel_mxu=True)
+    res_j = jtr.track_frame_pyr(*_frame_args(sc, True), interpret=True,
+                                **kw)
+    from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel2 as ttk
+    before = ttk.composite32_fwd.launches_mxu
+    res_t = ttr.track_frame_pyr(*_frame_args(sc, False), device="cpu", **kw)
+    assert ttk.composite32_fwd.launches_mxu == before
+    np.testing.assert_allclose(res_t[0].numpy(), np.asarray(res_j[0]),
+                               rtol=0, atol=1e-4)
+    np.testing.assert_allclose(res_t[1].numpy(), np.asarray(res_j[1]),
+                               rtol=0, atol=1e-4)
 
 
 def _frame_args(sc, jax_side):
