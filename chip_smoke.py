@@ -16,15 +16,16 @@ Phases (each one that fails ends the run with a non-zero exit code):
    s=4/2/1 (300x170, 600x340, 1200x680) with and without n_touched, and
    at s=2 once more with n_touched under the blend-weight rule; reports
    max |kernel - plain| for color, depth and T, the n_touched mismatch
-   count, and kernel / plain times (CUDA events, median of 7 after
-   warm-up). Backward (B2): the room map at s=1 planned as polish_frame
+   count, and kernel times (CUDA events, median of 7 after warm-up; the
+   plain version's at s=2 only, where the kernels line reads it).
+   Backward (B2): the room map at s=1 planned as polish_frame
    plans it (pad 2) and as the full-resolution trackers plan it (pad 8),
    at s=2 and s=4 as the exact pyramid plans them, and the entry cloud,
    each under two cotangents (the real one of loss_tracking_rgbd against
    frame 1 at the warm-start pose, and a seeded one); reports max
    |kernel - plain| per column over the column's max, dL/dtau through
-   each route, and kernel / bound times (plain times at s=1 pad 2, s=2
-   and the cloud). Then the lab closure: the 15-Gaussian fixture's
+   each route, and kernel / bound times (the plain version's at s=1 pad
+   2 under the loss cotangent only). Then the lab closure: the 15-Gaussian fixture's
    dL/dtau through the CUDA kernels against the port's analytic lab.
 3. Main path: builds the 200k-Gaussian room map (seeded), renders the
    ground-truth frames of bench.py's 5-pose trajectory with the port, and
@@ -125,9 +126,21 @@ may launch the f32 B1' or B2); and a fourth SLAM run, ``slam-mxu``
 driver started with viewer_port=0 as ``slam_main.py --viewer 0`` starts
 it; a thread fetches /status and one /frame.png over 127.0.0.1 during
 the run and decodes the PNG), held to 1 cm and to SLAM_BF16_ATE_REL of
-slam's ATE. A failed gate is printed and the run goes on; it exits
-non-zero before the result lines if any gate failed. Without CUDA it
-exits non-zero before printing any result.
+slam's ATE.
+
+The sub-tile slice: B1', B1 and B2 are the kernels of
+csrc/tile32_fwd_subtile.cu and csrc/tile32_bwd_subtile.cu (one CTA per
+16x16 quarter, a conservative per-warp cull). On every f32 32x32 plan of
+phase 2 they are also held to bit-equal images (B2: the same rows from
+two launches), and the one-CTA-per-tile design they replaced (the
+``*_tile1024`` wrappers) is checked against plain and timed on the same
+plan in turns (old, new, new, old), beside the cells the new kernels
+evaluate (post_cull_cells, tk.subtile_cells) and the tile-walk's. No
+path may launch a ``*_tile1024`` wrapper. Every compositing bound
+charges only the cells the function needs (bound_ms), with PRs 1-5's
+walk bound beside it (walk_bound_ms). A failed gate is printed and the
+run goes on; it exits non-zero before the result lines if any gate
+failed. Without CUDA it exits non-zero before printing any result.
 """
 
 import json
@@ -181,33 +194,39 @@ TIMED_REPS = 5
 R05_JAX_ERR_MEAN_M = 0.746e-3
 R05_ERR_REL = 0.05
 
-# Bound model for the compositing kernel. Memory: every pair row the
-# tiles walk is read once (64 B), the 5-plane image written once, and
-# with n_touched one f32 per walked pair written. Arithmetic, counted
-# from csrc/tile_kernel2_fwd.cu: each (pair, pixel) cell walked costs ~25
-# FP32 operations (deltas 2, quadratic form 9, rect and skip tests 7, exp
-# ~4, the opacity product, the 0.99 cap and the 1/255 test 3), and a cell
-# that passes the skip tests while its pixel is not done (counted by the
-# plain version on this run's data: the included cells and each pixel's
-# terminating one) 13 more (T_incl 2, the 1e-4 test 1, the weight 1, four
-# multiply-adds 8, the n_touched test 1). Peaks: 3.35 TB/s HBM and 67
-# TFLOP/s FP32 (H100 SXM data sheet, non-tensor FP32, at the full 700 W
-# power limit).
+# Bound model for the compositing kernel: the work the function needs
+# on this run's data, whatever cells a design walks. Memory: every live
+# pair row (the tiles' runs) read once (64 B), the 5-plane image written
+# once, and with n_touched one f32 per live pair written. Arithmetic,
+# counted from csrc/tile32_fwd_subtile.cu: a (pair, pixel) cell that
+# passes the skip tests while its pixel is not done (counted by the plain
+# version: the included cells and each pixel's terminating one) needs the
+# falloff and the tests, ~25 FP32 operations (deltas 2, quadratic form 9,
+# rect and skip tests 7, exp ~4, the opacity product, the 0.99 cap and
+# the 1/255 test 3), and 13 more (T_incl 2, the 1e-4 test 1, the weight
+# 1, four multiply-adds 8, the n_touched test 1): 38. Cells that fail the
+# tests are skipped work a design may avoid, so they are not charged.
+# walk_bound_ms, reported beside it, is the bound PRs 1-5 stated: every
+# cell of the 32x32 tile-walk charged 25 and every walked pair row read.
+# Peaks: 3.35 TB/s HBM and 67 TFLOP/s FP32 (H100 SXM data sheet,
+# non-tensor FP32, at the full 700 W power limit).
 OPS_PER_WALKED_CELL = 25.0
 OPS_PER_PASSED_CELL = 13.0
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# Bound model for the backward kernel (B2). Memory: every walked pair row
-# read once (64 B) and every pair row of dfeat written once (64 B), the
-# ten (H, W) planes (forward color 3, depth, T; cotangents 3, depth, T)
-# read once. Arithmetic, counted from csrc/tile_kernel2_bwd.cu: every
-# walked (pair, pixel) cell recomputes the forward's walked share (25, as
-# above); only a cell whose pixel includes the pair (counted by the plain
-# version on this run's data) also steps the transmittance (T_incl 2, the
-# 1e-4 test 1), evaluates the gradient, 46 (w 1, A 7, prefix 2,
-# 1/(1-alpha) 3, dL/dalpha 4, G 2, dL/dG 1, G dx and G dy 2, dG/ddx and
-# dG/ddy 8, the five quadratic-form terms 11, d_opa 1, w dC and w dD 4),
-# and adds its ten row values into the pair's sums, 10: 59.
+# Bound model for the backward kernel (B2), likewise the work needed.
+# Memory: every live pair row read once (64 B) and every pair row of
+# dfeat written once (64 B), the ten (H, W) planes (forward color 3,
+# depth, T; cotangents 3, depth, T) read once. Arithmetic, counted from
+# csrc/tile32_bwd_subtile.cu: a cell whose pixel includes the pair
+# (counted by the plain version on this run's data) recomputes the
+# forward's falloff and tests (25, as above), steps the transmittance
+# (T_incl 2, the 1e-4 test 1), evaluates the gradient, 46 (w 1, A 7,
+# prefix 2, 1/(1-alpha) 3, dL/dalpha 4, G 2, dL/dG 1, G dx and G dy 2,
+# dG/ddx and dG/ddy 8, the five quadratic-form terms 11, d_opa 1, w dC
+# and w dD 4), and adds its ten row values into the pair's sums, 10: 84.
+# walk_bound_ms: PRs 1-5's bound (25 a cell of the 32x32 tile-walk, 59
+# more an included one, walked pair rows read).
 OPS_PER_WALKED_CELL_BWD = 25.0
 OPS_PER_INCLUDED_CELL_BWD = 59.0
 
@@ -417,17 +436,20 @@ MXU_POWER_FLOOR = -20.0
 MXU_RENDER_TOL = {"color": 1e-3, "depth": 5e-3, "opacity": 1e-3}
 MXU_RENDER_FLIP_TOL = {"color": 8e-3, "depth": 5e-2, "opacity": 8e-3}
 # The mxu bound: the tensor cores' share, three TF32 m16n16k8 passes of
-# the power block, 3 x 2 x 8 FLOP a walked (pair, pixel) cell at the dense
-# TF32 peak (495 TFLOP/s, H100 SXM data sheet), charged beside the CUDA
-# cores' share at the FP32 peak. CUDA-core operations, counted from
-# csrc/tile_kernel2_fwd.cu under kMXU: a walked cell the f32 kernel's 25
-# less the deltas (2) and the quadratic form (9), plus the clamp 1: 15;
+# the power block, 3 x 2 x 8 FLOP a needed (pair, pixel) cell (a walked
+# one under walk_bound_ms) at the dense TF32 peak (495 TFLOP/s, H100 SXM
+# data sheet), charged beside the CUDA cores' share at the FP32 peak.
+# CUDA-core operations, counted from csrc/tile_kernel2_fwd.cu under kMXU:
+# a walked cell the f32 kernel's 25 less the deltas (2) and the quadratic
+# form (9), plus the clamp 1: 15;
 # a cell that passes the skip tests while its pixel is not done (the only
 # cells that reach the log-space prefix) the f32 kernel's 13 less the
 # linear T_incl (2), plus log1pf ~8, the second expf ~4, the division ~4,
 # the log-space sum and product 2 and the T min 1: 30. The mxu backward
 # recomputes the linear walk and keeps the deltas for the gradient
 # products: 25 - 9 + 1 = 17 a walked cell, and B2's 59 an included cell.
+# The needed cells are charged both shares (forward 15 + 30, backward
+# 17 + 59).
 TF32_FLOP_PER_S = 495e12
 TC_FLOP_PER_CELL = 3 * 2 * 8
 OPS_PER_WALKED_CELL_MXU = 15.0
@@ -575,10 +597,11 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                 nt_weight=False, tile16=False, time_plain=True, bf16=False,
                 mxu=False):
     """A forward kernel against its plain version on one plan: B1/B1'
-    (32x32), under ``bf16`` or ``mxu`` their bfloat16 or MXU bodies (and
-    the f32 kernel's time on the same plan beside them), or under
-    ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile grid). Plain
-    time unless not ``time_plain``."""
+    (32x32; with PR 5's design timed in turns beside it and the cells the
+    sub-tile kernel evaluates), under ``bf16`` or ``mxu`` their bfloat16
+    or MXU bodies (and the f32 kernel's time on the same plan beside
+    them), or under ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile
+    grid). Plain time unless not ``time_plain``."""
     tile = 16 if tile16 else 32
 
     def kernel(bf16=bf16, mxu=mxu):
@@ -592,8 +615,15 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         return tk.plain_walk(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                              nt_weight, tile=tile, bf16=bf16, mxu=mxu)
 
+    # the f32 32x32 forward: the sub-tile kernel, beside PR 5's design
+    subtile = not (tile16 or bf16 or mxu)
     torch.cuda.synchronize()
-    (ref, walked, passed) = plain()
+    if subtile:
+        ref, walked, passed, stop_at = tk.plain_walk(
+            feat, ranges, n_tx, n_ty, w, h, with_ntouch, nt_weight,
+            done_at=True)
+    else:
+        (ref, walked, passed) = plain()
     got = kernel()
     torch.cuda.synchronize()
     errs = {
@@ -613,21 +643,45 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     p9999 = {k: float(torch.quantile(d, 0.9999)) for k, d in diffs.items()}
     over_1e3 = int((diff > 1e-3).sum())
     over_tol = sum(int((diffs[k] > MXU_IMG_TOL[k]).sum()) for k in diffs)
-    ms = time_ms(kernel)
+    extra = {}
+    if subtile:
+        def old():
+            return tk.composite32_fwd_tile1024(feat, ranges, n_tx, n_ty, w,
+                                               h, with_ntouch, nt_weight)
+        old_out = old()
+        extra["tile1024_max_abs_err"] = max(
+            float((a - b).abs().max()) for a, b in zip(old_out[:3], ref[:3]))
+        extra["tile1024_nt_mismatch"] = int(
+            (old_out.n_touched_pairs != ref.n_touched_pairs).sum())
+        # in turns: PR 5's design, the new kernel twice, PR 5's again
+        turns = [time_ms(f) for f in (old, kernel, kernel, old)]
+        ms = (turns[1] + turns[2]) / 2
+        extra.update(tile1024_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+        kept, rected = tk.subtile_cells(feat, ranges, n_tx, n_ty, stop_at)
+        extra.update(post_cull_cells=kept, rect_cells=rected)
+    else:
+        ms = time_ms(kernel)
     plain_ms = (time_ms(plain, reps=3 if bf16 or mxu else 5, warm=1)
                 if time_plain else None)
-    n_bytes = (walked_pairs * 64 + ranges.numel() * 4 + 5 * h * w * 4
-               + (walked_pairs * 4 if with_ntouch else 0))
     cells = walked_pairs * tile * tile
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    nt_bytes = 4 if with_ntouch else 0
+    t_bytes = (live * (64 + nt_bytes) + ranges.numel() * 4
+               + 5 * h * w * 4) / HBM_BYTES_PER_S * 1e3
+    walk_t_bytes = (walked_pairs * (64 + nt_bytes) + ranges.numel() * 4
+                    + 5 * h * w * 4) / HBM_BYTES_PER_S * 1e3
     if mxu:
-        t_ops = ((cells * OPS_PER_WALKED_CELL_MXU
-                  + passed_cells * OPS_PER_PASSED_CELL_MXU)
-                 / FP32_OPS_PER_S
-                 + cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S) * 1e3
+        t_ops = (passed_cells * (OPS_PER_WALKED_CELL_MXU
+                                 + OPS_PER_PASSED_CELL_MXU) / FP32_OPS_PER_S
+                 + passed_cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S) * 1e3
+        walk_t_ops = ((cells * OPS_PER_WALKED_CELL_MXU
+                       + passed_cells * OPS_PER_PASSED_CELL_MXU)
+                      / FP32_OPS_PER_S
+                      + cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S) * 1e3
     else:
-        t_ops = (cells * OPS_PER_WALKED_CELL + passed_cells
-                 * OPS_PER_PASSED_CELL) / FP32_OPS_PER_S * 1e3
+        t_ops = passed_cells * (OPS_PER_WALKED_CELL + OPS_PER_PASSED_CELL) \
+            / FP32_OPS_PER_S * 1e3
+        walk_t_ops = (cells * OPS_PER_WALKED_CELL + passed_cells
+                      * OPS_PER_PASSED_CELL) / FP32_OPS_PER_S * 1e3
     rec = dict(case=name, tile=tile, shape=f"{w}x{h}",
                with_ntouch=with_ntouch, bf16=bf16, mxu=mxu,
                nt_weight=nt_weight, live_pairs=live,
@@ -637,9 +691,10 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                values_over_1e3=over_1e3, values=int(diff.numel()),
                values_over_mxu_tol=over_tol, nt_mismatch=nt_bad, ms=ms,
                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes > t_ops else "operations")
+               bound_by="bytes" if t_bytes > t_ops else "operations",
+               walk_bound_ms=max(walk_t_bytes, walk_t_ops), **extra)
     if mxu:
-        rec["bound_tensor_core_ms"] = cells * TC_FLOP_PER_CELL \
+        rec["bound_tensor_core_ms"] = passed_cells * TC_FLOP_PER_CELL \
             / TF32_FLOP_PER_S * 1e3
     if bf16 or mxu:
         rec["f32_ms"] = time_ms(lambda: kernel(False, False))
@@ -666,6 +721,17 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         if nt_bad > NT_MISMATCH_FRAC * live:
             fail(f"{name}: {nt_bad} n_touched mismatches of {live} live "
                  "pairs")
+    if subtile:
+        # the sub-tile kernel composites the same cells in the same order
+        # with the same arithmetic: its images are the plain version's
+        if max(errs.values()) > 0.0:
+            fail(f"{name}: the sub-tile kernel's images are not bit-equal "
+                 f"to plain ({errs})")
+        if extra["tile1024_max_abs_err"] > IMG_TOL \
+                or extra["tile1024_nt_mismatch"] > NT_MISMATCH_FRAC * live:
+            fail(f"{name}: PR 5's design (tile1024) differs from plain by "
+                 f"{extra['tile1024_max_abs_err']:.3e}, "
+                 f"{extra['tile1024_nt_mismatch']} n_touched mismatches")
     if bf16 and rec["differs_from_f32"] <= IMG_TOL:
         fail(f"{name}: the bf16 kernel's image equals the f32 kernel's")
     return rec
@@ -748,7 +814,7 @@ def phase_kernels(dev, gm, cam):
     print(f"entry scene: {int(plan.num_pairs)} pairs, overflow "
           f"{int(plan.overflow)}", flush=True)
     recs.append(kernel_case("entry_cloud50k", feat, ranges, n_tx, n_ty, W, H,
-                            True))
+                            True, time_plain=False))
 
     # the room map's pyramid levels at the first frame's pose, planned as
     # the tracker plans them (radius_scale 1.1, pad max(2, 4/s), matched
@@ -770,7 +836,8 @@ def phase_kernels(dev, gm, cam):
             prep, cam_l.width, cam_l.height, cap, 1.1, max(2.0, 4.0 / s))
         for with_nt, nt_w in forms:
             recs.append(kernel_case(f"room_s{s}", feat, ranges, n_tx, n_ty,
-                                    cam_l.width, cam_l.height, with_nt, nt_w))
+                                    cam_l.width, cam_l.height, with_nt, nt_w,
+                                    time_plain=s == 2 and not nt_w))
     return recs
 
 
@@ -817,7 +884,9 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             target, seed, time_plain=True, tile16=False, opa_growth=1.0,
             cot_fn=loss_cotangent, bf16=False, mxu=False):
     """The backward kernel against its plain version on one plan (B2,
-    under ``bf16`` and/or ``mxu`` B2-bf16, B2-mxu or B2-bf16-mxu on the
+    with PR 5's design timed in turns beside it, a second launch held bit
+    for bit to the first and the cells it evaluates; under ``bf16``
+    and/or ``mxu`` B2-bf16, B2-mxu or B2-bf16-mxu on the
     matching forward's planes with the f32 kernel's time beside it, or
     under ``tile16`` B4 on a 16-px plan) under ``cot_fn``'s loss cotangent
     and a seeded one: per-column error, dL/dtau through both routes, and
@@ -848,15 +917,39 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
     cots = {"loss": cot_fn(planes, target),
             "seeded": (seeded[0:3], seeded[3], seeded[4])}
+    # the f32 32x32 backward: the sub-tile kernel, beside PR 5's design;
+    # the cells it evaluates follow the forward walk's stops
+    subtile = not (tile16 or bf16 or mxu)
+    cull = {}
+    if subtile:
+        with torch.no_grad():
+            stop_at = tk.plain_walk(feat_c, ranges, n_tx, n_ty, w, h, False,
+                                    done_at=True)[3]
+            kept, rected = tk.subtile_cells(feat_c, ranges, n_tx, n_ty,
+                                            stop_at)
+        cull = dict(post_cull_cells=kept, rect_cells=rected)
+    live = int((ranges[:, 1] - ranges[:, 0]).sum())
     recs = []
     for kind, cot in cots.items():
         args = (feat_c, ranges, *planes, *cot, n_tx, n_ty, w, h)
         torch.cuda.synchronize()
+        extra = dict(cull)
         with torch.no_grad():
             got = kernel(*args)
             ref, walked, included = tk.plain_bwd_walk(*args, tile=tile,
                                                       bf16=bf16, mxu=mxu)
+            if subtile:
+                again = kernel(*args)
+                old_rows = tk.composite32_bwd_tile1024(*args)
         torch.cuda.synchronize()
+        if subtile:
+            # the cluster sums the quarters in a fixed order: a second
+            # launch gives the same rows bit for bit
+            extra["repeat_bit_equal"] = bool(torch.equal(got, again))
+            extra["tile1024_max_col_rel_err"] = max(
+                float((old_rows[:, c] - ref[:, c]).abs().max())
+                / max(float(ref[:, c].abs().max()), 1e-30)
+                for c in range(tk.N_ROWS))
         col_rel = []
         for c in range(tk.N_ROWS):
             scale = float(ref[:, c].abs().max())
@@ -872,25 +965,44 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         dtau_rel = float((dtau_k - dtau_p).abs().max()
                          / dtau_p.abs().max())
         with torch.no_grad():
-            ms = time_ms(lambda: kernel(*args))
+            if subtile:
+                def old():
+                    return tk.composite32_bwd_tile1024(*args)
+
+                def new():
+                    return kernel(*args)
+                # in turns: PR 5's design, the new kernel twice, PR 5's
+                turns = [time_ms(f) for f in (old, new, new, old)]
+                ms = (turns[1] + turns[2]) / 2
+                extra.update(tile1024_ms=(turns[0] + turns[3]) / 2,
+                             turns_ms=turns)
+            else:
+                ms = time_ms(lambda: kernel(*args))
             plain_ms = (time_ms(lambda: tk.plain_bwd_walk(
                 *args, tile=tile, bf16=bf16, mxu=mxu),
                 reps=3 if bf16 or mxu else 7, warm=1)
-                if time_plain else None)
+                if time_plain and kind == "loss" else None)
             f32_ms = (time_ms(lambda: kernel(*args, bf16=False, mxu=False))
                       if bf16 or mxu else None)
         walked_pairs = int(walked.sum())
         included_cells = int(included)
         cells = walked_pairs * tile * tile
-        n_bytes = (walked_pairs * 64 + feat_c.shape[0] * 64
-                   + ranges.numel() * 4 + 10 * h * w * 4)
-        n_ops = (cells * (OPS_PER_WALKED_CELL_BWD_MXU if mxu
-                          else OPS_PER_WALKED_CELL_BWD)
-                 + included_cells * OPS_PER_INCLUDED_CELL_BWD)
-        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-        t_ops = n_ops / FP32_OPS_PER_S * 1e3
+        planes_bytes = (feat_c.shape[0] * 64 + ranges.numel() * 4
+                        + 10 * h * w * 4)
+        t_bytes = (live * 64 + planes_bytes) / HBM_BYTES_PER_S * 1e3
+        walk_t_bytes = ((walked_pairs * 64 + planes_bytes)
+                        / HBM_BYTES_PER_S * 1e3)
+        per_walked = (OPS_PER_WALKED_CELL_BWD_MXU if mxu
+                      else OPS_PER_WALKED_CELL_BWD)
+        t_ops = (included_cells * (per_walked + OPS_PER_INCLUDED_CELL_BWD)
+                 / FP32_OPS_PER_S * 1e3)
+        walk_t_ops = ((cells * per_walked
+                       + included_cells * OPS_PER_INCLUDED_CELL_BWD)
+                      / FP32_OPS_PER_S * 1e3)
         if mxu:
-            t_ops += cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S * 1e3
+            t_ops += included_cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S \
+                * 1e3
+            walk_t_ops += cells * TC_FLOP_PER_CELL / TF32_FLOP_PER_S * 1e3
         rec = dict(
             case=name, tile=tile, cotangent=kind, shape=f"{w}x{h}", bf16=bf16,
             mxu=mxu,
@@ -905,7 +1017,8 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             dtau_kernel=dtau_k.tolist(), dtau_plain=dtau_p.tolist(),
             dtau_rel_err=dtau_rel, ms=ms, plain_ms=plain_ms, f32_ms=f32_ms,
             bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes > t_ops else "operations")
+            bound_by="bytes" if t_bytes > t_ops else "operations",
+            walk_bound_ms=max(walk_t_bytes, walk_t_ops), **extra)
         if bf16 and mxu:
             rec.update(bf16_effect_norm=bf16_effect, plain_gap_norm=plain_gap)
         label = "B4" if tile16 else "B2" + ("-bf16" if bf16 else "") + (
@@ -925,6 +1038,12 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         if dtau_rel > dtau_tol:
             fail(f"{label} {name}/{kind}: dL/dtau differs by "
                  f"{dtau_rel:.3e} relative (limit {dtau_tol})")
+        if subtile and not extra["repeat_bit_equal"]:
+            fail(f"{label} {name}/{kind}: two launches gave different rows")
+        if subtile and extra["tile1024_max_col_rel_err"] > col_tol:
+            fail(f"{label} {name}/{kind}: PR 5's design (tile1024) differs "
+                 f"from plain by {extra['tile1024_max_col_rel_err']:.3e} of "
+                 "a column's max")
         if bf16 and mxu and bf16_effect <= plain_gap:
             fail(f"{label} {name}/{kind}: the bf16 products moved the rows "
                  f"by {bf16_effect:.3e}, no more than the gap to plain "
@@ -957,7 +1076,7 @@ def phase_backward(dev, gm, cam, poses):
         recs += b2_case(f"room_s{s}", dev, level_prep_fn(dev, gm, cam_s, 0.3),
                         cam_s.width, cam_s.height, PAIR_CAP // 2, 1.1,
                         max(2.0, 8.0 / s), gt_s, seed=seed,
-                        time_plain=s == 2)
+                        time_plain=False)
     # the entry cloud, against the room's frame-1 target
     means, scales, quats, opac, shs = make_cloud(N_CLOUD, seed=0)
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
@@ -970,7 +1089,7 @@ def phase_backward(dev, gm, cam, poses):
                                 torch.eye(4, device=dev), proj, tau, FX, FY,
                                 W, H, W / (2 * FX), H / (2 * FY))
     recs += b2_case("entry_cloud50k", dev, cloud_prep, W, H, PAIR_CAP, 1.0,
-                    0.0, gt1, seed=3)
+                    0.0, gt1, seed=3, time_plain=False)
     return recs
 
 
@@ -1631,11 +1750,18 @@ WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
                                            "launches_mxu"),
             "composite32_bwd_mxu": (tk.composite32_bwd, "launches_mxu"),
             "composite32_bwd_bf16_mxu": (tk.composite32_bwd,
-                                         "launches_bf16_mxu")}
+                                         "launches_bf16_mxu"),
+            "composite32_fwd_tile1024": (tk.composite32_fwd_tile1024,
+                                         "launches"),
+            "composite32_bwd_tile1024": (tk.composite32_bwd_tile1024,
+                                         "launches")}
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
                 "composite32_bwd_bf16")
+# PR 5's f32 design, timed beside the sub-tile kernels in phase 2 only:
+# no path may launch it
+YARDSTICKS = ("composite32_fwd_tile1024", "composite32_bwd_tile1024")
 
 
 def count_of(name):
@@ -1650,13 +1776,14 @@ def reset_counts():
 
 def read_counts(path, required, forbidden=()):
     """The launch counts since reset_counts(); fails unless every kernel
-    in ``required`` was launched on ``path`` and none in ``forbidden``."""
+    in ``required`` was launched on ``path`` and none in ``forbidden`` or
+    YARDSTICKS."""
     counts = {name: count_of(name) for name in WRAPPERS}
     print(f"{path} launches: {json.dumps(counts)}", flush=True)
     for name in required:
         if counts[name] == 0:
             fail(f"kernel {name} was never launched on the path {path}")
-    for name in forbidden:
+    for name in tuple(forbidden) + YARDSTICKS:
         if counts[name]:
             fail(f"kernel {name} was launched on the path {path}")
     return counts
@@ -2096,7 +2223,8 @@ def profile_call(fn, name):
     kern = sorted(((k, ms, n) for k, (ms, n) in agg.items()),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in kern)
-    comp_ms = {part: sum(r[1] for r in kern if f"{part}_kernel" in r[0])
+    comp_ms = {part: sum(r[1] for r in kern if f"{part}_kernel" in r[0]
+                         or f"{part}_subtile" in r[0])
                for part in ("composite32_fwd", "composite32_bwd",
                             "composite16_fwd", "composite16_bwd")}
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -2518,25 +2646,39 @@ def run(dev):
                     if c["case"] == "room_s2" and c["with_ntouch"] == with_nt
                     and not c["nt_weight"])
 
+    # the sub-tile kernels (B1', B1, B2) with PR 5's design's time on the
+    # same plan in the same call (tile1024_ms), the cells they evaluate
+    # after the rect16 compaction and the block test (post_cull_cells)
+    # beside the cells of the 32x32 tile-walk (tile_walk_cells), and PR
+    # 1-5's walk bound beside the bound of the work needed
+    def subtile_keys(c):
+        return dict(tile1024_ms=c["tile1024_ms"],
+                    post_cull_cells=c["post_cull_cells"],
+                    rect_cells=c["rect_cells"],
+                    tile_walk_cells=c["walked_cells"],
+                    walk_bound_ms=c["walk_bound_ms"])
+
     kernels = []
     for name, with_nt, line in (("composite32_fwd", False, 662),
                                 ("composite32_fwd_ntouch", True, 642)):
         c = pick(with_nt)
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile_kernel2_fwd.cu",
+            name=name, route="cuda", source=csrc + "tile32_fwd_subtile.cu",
             replaces=f"{pallas}:{line}", launches=total[name],
             max_abs_err=max(c["max_abs_err"].values()),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+            bound_by=c["bound_by"], library_ms=None, shape=c["shape"],
+            **subtile_keys(c)))
     c = next(c for c in b2_cases
              if c["case"] == "room_s1_polish" and c["cotangent"] == "loss")
     kernels.append(dict(
         name="composite32_bwd", route="cuda",
-        source=csrc + "tile_kernel2_bwd.cu", replaces=f"{pallas}:699",
+        source=csrc + "tile32_bwd_subtile.cu", replaces=f"{pallas}:699",
         launches=total["composite32_bwd"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-        bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+        bound_by=c["bound_by"], library_ms=None, shape=c["shape"],
+        repeat_bit_equal=c["repeat_bit_equal"], **subtile_keys(c)))
     for name, case, with_nt, line in (
             ("composite16_fwd", "room_s1_map16", False, 582),
             ("composite16_fwd_ntouch", "room_s1_fresh16", True, 562)):
@@ -2547,7 +2689,8 @@ def run(dev):
             replaces=f"{pallas16}:{line}", launches=total[name],
             max_abs_err=max(c["max_abs_err"].values()),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
+            library_ms=None, shape=c["shape"]))
     c = next(c for c in b4_cases if c["cotangent"] == "loss")
     kernels.append(dict(
         name="composite16_bwd", route="cuda",
@@ -2555,7 +2698,8 @@ def run(dev):
         launches=total["composite16_bwd"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-        bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+        bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
+        library_ms=None, shape=c["shape"]))
     # the bf16 variants at the s=2 tracker plan (forward) and the s=1
     # exact plan (backward, loss cotangent), the f32 kernel's time on the
     # same plan beside each; their bound is the f32 kernels' operation
@@ -2569,8 +2713,8 @@ def run(dev):
             replaces=f"{pallas}:{line} (bf16=True, _chunk_terms :160-175)",
             launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
-            shape=c["shape"]))
+            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
+            library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
     c = next(c for c in b2_bf16_cases if c["case"] == "room_s1_polish_bf16"
              and c["cotangent"] == "loss")
     kernels.append(dict(
@@ -2580,8 +2724,8 @@ def run(dev):
         launches=total["composite32_bwd_bf16"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-        bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
-        shape=c["shape"]))
+        bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
+        library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
     # the mxu variants likewise: the s=2 tracker plan (forward) and the
     # s=1 polish plan (backward, loss cotangent), the f32 kernel's time on
     # the same plan beside each; the bound charges the tensor cores' share
@@ -2597,7 +2741,7 @@ def run(dev):
             launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
             p999_abs_err=c["p999_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"],
+            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
             bound_tensor_core_ms=c["bound_tensor_core_ms"], library_ms=None,
             f32_ms=c["f32_ms"], shape=c["shape"]))
     for name, case in (("composite32_bwd_mxu", "room_s1_polish_mxu"),
@@ -2612,8 +2756,8 @@ def run(dev):
             launches=total[name], max_abs_err=c["max_abs_err"],
             max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
-            shape=c["shape"]))
+            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
+            library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
     # B5: one entry per variant, at the script's shape; launches from the
     # script's own run (phase_abl16)
     for v, r in abl.items():

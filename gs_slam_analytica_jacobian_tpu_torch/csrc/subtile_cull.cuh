@@ -1,0 +1,246 @@
+// What the 16x16 sub-tile compositing kernels (tile32_fwd_subtile.cu,
+// tile32_bwd_subtile.cu) share: the CTA and warp layout over a 32x32
+// tile, the conservative per-warp block test, the rect16 compaction of a
+// staged chunk, and the asynchronous staging of a chunk of pair rows
+// (one bulk copy, completion on an mbarrier).
+//
+// Layout. A 32x32 tile's four 16x16 quarters are four CTAs of 256
+// threads (blockIdx.x = 4 * tile + quarter, quarter = qy * 2 + qx). A
+// quarter is exactly one 16-px cell of the plan's rect16 boxes, so the
+// rect test is uniform over the CTA. Warp w owns the 8x4 pixel block at
+// (8 (w & 1), 4 (w >> 1)) of its quarter; lane l is the pixel (l & 7,
+// l >> 3) of that block.
+//
+// The block test, block_keep. A (pair, block) is dropped only where, at
+// every pixel of the 8x4 block, opa * expf(power) < 1/255 as the kernel's
+// f32 arithmetic computes it; such a pair is skipped at each of those
+// pixels, and a skipped pair changes neither T nor the done flag, so the
+// walk over the kept pairs gives the same images, n_touched and rows.
+// With L = log(opa) - log(1/255) the per-pixel test keeps a pixel only if
+// q / 2 <= L up to rounding, q = ca dx^2 + 2 cb dx dy + cc dy^2 (power =
+// -q / 2). For a positive-definite conic q is convex, so its minimum over
+// the block's rectangle of deltas [mx - x1, mx - x0] x [my - y1, my - y0]
+// (integer pixel coordinates, no +0.5, as the kernels use) is 0 when the
+// mean lies inside, else the least of the four edges' minima, each a 1-D
+// quadratic minimised at a clamped stationary point (from the
+// reciprocals 1/ca and 1/cc, prepared once per staged row with L). The
+// pair is dropped when
+//   qmin / 2 > L + kCullRel * Smax + kCullAbs,
+//   Smax = 2 (ca max(dx^2) + cc max(dy^2)) over the rectangle's corners.
+// The margin's argument: under positive definiteness |cb dx dy| <=
+// (ca dx^2 + cc dy^2) / 2, so every term of q, at any pixel of the block
+// and at the points this test evaluates, is at most Smax in magnitude.
+// The kernel's power rounds each delta (one ulp u = 2^-24 relative), each
+// of its products and sums (-fmad=false: one rounding each): at most ~7u
+// Smax off the exact power. This test's own f32 evaluation of the
+// rectangle, the stationary points and the edge values is at most ~12u
+// Smax off, in power units. kCullRel = 2^-18 = 64u covers their sum more
+// than three times. expf (2 ulp), the product with opa (one rounding),
+// logf here (1 ulp of |L| <= ~90) and the f32 constant 1/255 move the
+// log of alpha by less than 1e-5 together: kCullAbs = 2^-16. Rows with a
+// non-finite mean, conic or opacity, and conics that are not clearly
+// positive definite (ca <= 0, cc <= 0 or det <= 2^-16 ca cc, where the
+// bound on |cb| above could fail by rounding), get L = +inf and are never
+// dropped; an opacity of 0 gives L = -inf and the pair is dropped, as
+// alpha < 1/255 at every pixel (a negative one gives NaN: kept). The plain PyTorch version is
+// ops/tile_kernel2.py::block_keep_plain, with the same operations in the
+// same order.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace subtile {
+
+constexpr int kCell = 16;      // a quarter: one rect16 cell
+constexpr int kThreads = kCell * kCell;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlockW = 8;     // a warp's pixel block, 8 x 4
+constexpr int kBlockH = 4;
+constexpr int kChunk = 64;     // pair rows staged per step (4 KB)
+constexpr float kAlphaMin = 1.0f / 255.0f;
+constexpr float kAlphaMax = 0.99f;
+constexpr float kTEps = 1e-4f;
+constexpr float kCullRel = 3.814697265625e-06f;  // 2^-18
+constexpr float kCullAbs = 1.52587890625e-05f;   // 2^-16
+constexpr float kPdRel = 1.52587890625e-05f;     // 2^-16
+constexpr unsigned kFull = 0xffffffffu;
+
+// The geometry of this CTA and thread.
+struct Geometry {
+  int tile, tx, ty;
+  float t16x, t16y;  // the quarter's 16-px cell
+  int xb, yb;        // the warp's block origin
+  int x, y;          // this thread's pixel
+};
+
+__device__ __forceinline__ Geometry geometry(int n_tx) {
+  Geometry g;
+  g.tile = blockIdx.x >> 2;
+  const int quarter = blockIdx.x & 3;
+  g.tx = g.tile % n_tx;
+  g.ty = g.tile / n_tx;
+  const int cx = 2 * g.tx + (quarter & 1);
+  const int cy = 2 * g.ty + (quarter >> 1);
+  g.t16x = static_cast<float>(cx);
+  g.t16y = static_cast<float>(cy);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  g.xb = cx * kCell + (warp & 1) * kBlockW;
+  g.yb = cy * kCell + (warp >> 1) * kBlockH;
+  g.x = g.xb + (lane & (kBlockW - 1));
+  g.y = g.yb + (lane >> 3);
+  return g;
+}
+
+// rect16 covers the quarter's cell (the per-pixel test of the 32x32
+// kernels, uniform here)
+__device__ __forceinline__ bool rect_ok(const float4 f2, const float4 f3,
+                                        float t16x, float t16y) {
+  return (t16x >= f2.z) && (t16x < f3.x) && (t16y >= f2.w) &&
+         (t16y < f3.y);
+}
+
+// A pair row's block-test terms, computed once per staged row: p0 = (mx,
+// my, ca, cb), p1 = (cc, 1 / ca, 1 / cc, L) with L = log(opa) -
+// log(1/255), or +inf for a row that is never dropped (a non-finite
+// mean, conic or opacity, or a conic that is not clearly positive
+// definite).
+__device__ __forceinline__ void prepare(const float4 f0, const float4 f1,
+                                        float4* p0, float4* p1) {
+  const float mx = f0.x, my = f0.y, ca = f0.z, cb = f0.w, cc = f1.x;
+  const float opa = f1.y;
+  const bool finite = isfinite(mx) && isfinite(my) && isfinite(ca) &&
+                      isfinite(cb) && isfinite(cc) && isfinite(opa);
+  const float det = ca * cc - cb * cb;
+  const bool pd = ca > 0.0f && cc > 0.0f && det > kPdRel * (ca * cc);
+  const float L = (finite && pd) ? logf(opa) - logf(kAlphaMin) : INFINITY;
+  *p0 = f0;
+  *p1 = make_float4(cc, 1.0f / ca, 1.0f / cc, L);
+}
+
+// the minimum of q over the edge dx = a, dy in [lo, hi] (inv_c = 1 / cc)
+__device__ __forceinline__ float edge_min(float a, float lo, float hi,
+                                          float ca, float cb, float cc,
+                                          float inv_c) {
+  const float d = fminf(fmaxf(-(cb * a) * inv_c, lo), hi);
+  return (ca * a * a + 2.0f * cb * a * d) + cc * d * d;
+}
+
+// false only where the pair prepared in (p0, p1) is skipped at every
+// pixel of the 8x4 block at (xb, yb); see the note above
+__device__ __forceinline__ bool block_keep(const float4 p0, const float4 p1,
+                                           float xb, float yb) {
+  const float mx = p0.x, my = p0.y, ca = p0.z, cb = p0.w, cc = p1.x;
+  const float L = p1.w;
+  const float xlo = mx - (xb + static_cast<float>(kBlockW - 1));
+  const float xhi = mx - xb;
+  const float ylo = my - (yb + static_cast<float>(kBlockH - 1));
+  const float yhi = my - yb;
+  float qmin = 0.0f;
+  if (!(xlo <= 0.0f && xhi >= 0.0f && ylo <= 0.0f && yhi >= 0.0f)) {
+    qmin = fminf(fminf(edge_min(xlo, ylo, yhi, ca, cb, cc, p1.z),
+                       edge_min(xhi, ylo, yhi, ca, cb, cc, p1.z)),
+                 fminf(edge_min(ylo, xlo, xhi, cc, cb, ca, p1.y),
+                       edge_min(yhi, xlo, xhi, cc, cb, ca, p1.y)));
+  }
+  const float smax = 2.0f * (ca * fmaxf(xlo * xlo, xhi * xhi) +
+                             cc * fmaxf(ylo * ylo, yhi * yhi));
+  return !(0.5f * qmin > L + kCullRel * smax + kCullAbs);
+}
+
+// Staging: one bulk copy (TMA, cp.async.bulk) of a chunk's contiguous
+// 64-byte rows into shared memory, completion on an mbarrier.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one thread: expect ``bytes`` on ``bar`` and start the copy
+__device__ __forceinline__ void stage(void* dst, const void* src,
+                                      uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wait for the completion of ``bar``'s phase ``parity``
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The rows of a staged chunk whose rect16 covers the quarter's cell, in
+// pair order: warp 0 writes their indices to idx[0, m) and m to *count,
+// and thread r < kChunk (warps 0 and 1) prepares row r's block-test terms
+// in pre[r] if it is one of them. The caller synchronises the CTA before
+// reading them.
+__device__ __forceinline__ void compact_rect(const float4 (*rows)[4], int n,
+                                             float t16x, float t16y,
+                                             unsigned char* idx, int* count,
+                                             float4 (*pre)[2]) {
+  const int tid = threadIdx.x;
+  if (tid < kChunk && tid < n &&
+      rect_ok(rows[tid][2], rows[tid][3], t16x, t16y)) {
+    prepare(rows[tid][0], rows[tid][1], &pre[tid][0], &pre[tid][1]);
+  }
+  if ((tid >> 5) != 0) return;
+  const int lane = tid & 31;
+  int off = 0;
+#pragma unroll
+  for (int h = 0; h < kChunk / 32; ++h) {
+    const int r = h * 32 + lane;
+    const bool ok = r < n && rect_ok(rows[r][2], rows[r][3], t16x, t16y);
+    const unsigned b = __ballot_sync(kFull, ok);
+    if (ok) idx[off + __popc(b & ((1u << lane) - 1u))] =
+        static_cast<unsigned char>(r);
+    off += __popc(b);
+  }
+  if (lane == 0) *count = off;
+}
+
+// The warp's survivors of the block test among the m compacted rows:
+// bit k of keep[g] is row idx[32 g + k].
+__device__ __forceinline__ void cull(const float4 (*pre)[2],
+                                     const unsigned char* idx, int m,
+                                     float xb, float yb,
+                                     unsigned keep[kChunk / 32]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int g = 0; g < kChunk / 32; ++g) {
+    const int j = g * 32 + lane;
+    bool k = false;
+    if (j < m) {
+      const int r = idx[j];
+      k = block_keep(pre[r][0], pre[r][1], xb, yb);
+    }
+    keep[g] = __ballot_sync(kFull, k);
+  }
+}
+
+}  // namespace subtile

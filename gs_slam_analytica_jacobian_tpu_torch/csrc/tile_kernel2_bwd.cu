@@ -284,8 +284,11 @@ int launch(const void* feat, const void* ranges, const void* color,
 
 }  // namespace
 
-// C entries, loaded with ctypes: composite32_bwd (f32),
-// composite32_bwd_bf16 (the bfloat16 bodies), composite32_bwd_mxu (the
+// C entries, loaded with ctypes: composite32_bwd_tile1024 (f32: this
+// design's f32 body, which the C entry composite32_bwd of
+// tile32_bwd_subtile.cu replaced; kept as a yardstick that only
+// chip_smoke.py times on the same plans), composite32_bwd_bf16 (the
+// bfloat16 bodies), composite32_bwd_mxu (the
 // tensor-core falloff) and composite32_bwd_bf16_mxu (the tensor-core
 // falloff with the bfloat16 gradient products). feat: (B_al, 16) f32,
 // 16-byte aligned; ranges: (n_tiles, 2) int32; color, d_color: (3, H, W)
@@ -303,7 +306,7 @@ int launch(const void* feat, const void* ranges, const void* color,
                              stream);                                       \
   }
 
-BWD_ENTRY(composite32_bwd, false, false)
+BWD_ENTRY(composite32_bwd_tile1024, false, false)
 BWD_ENTRY(composite32_bwd_bf16, true, false)
 BWD_ENTRY(composite32_bwd_mxu, false, true)
 BWD_ENTRY(composite32_bwd_bf16_mxu, true, true)

@@ -291,18 +291,22 @@ mxu_power_tile_kernel(const float4* __restrict__ feat,  // (n, 4) x float4
 
 }  // namespace
 
-// C entries, loaded with ctypes: composite32_fwd (f32),
-// composite32_fwd_bf16 (the bfloat16 falloff) and composite32_fwd_mxu (the
+// C entries, loaded with ctypes: composite32_fwd_tile1024 (f32: this
+// design's f32 body, which the C entry composite32_fwd of
+// tile32_fwd_subtile.cu replaced; kept as a yardstick that only
+// chip_smoke.py times on the same plans), composite32_fwd_bf16 (the
+// bfloat16 falloff) and composite32_fwd_mxu (the
 // tensor-core falloff and the log-space transmittance; under mxu the
 // reference's bf16 flag has no effect on the forward). feat: (B_al, 16)
 // f32, 16-byte aligned; ranges: (n_tiles, 2) int32; out: (5, H, W) f32;
 // ntouch: (B_al,) f32, zero-filled by the caller (pairs a tile never
 // reaches must read 0). Launch on ``stream`` and return
 // cudaGetLastError().
-extern "C" int composite32_fwd(const void* feat, const void* ranges,
-                               void* out, void* ntouch, int n_tiles,
-                               int n_tx, int W, int H, int with_ntouch,
-                               int nt_weight, void* stream) {
+extern "C" int composite32_fwd_tile1024(const void* feat, const void* ranges,
+                                        void* out, void* ntouch,
+                                        int n_tiles, int n_tx, int W, int H,
+                                        int with_ntouch, int nt_weight,
+                                        void* stream) {
   return launch<false, false>(feat, ranges, out, ntouch, n_tiles, n_tx, W, H,
                               with_ntouch, nt_weight, stream);
 }

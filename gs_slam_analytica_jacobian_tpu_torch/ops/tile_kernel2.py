@@ -2,8 +2,8 @@
 wrappers, their plain PyTorch versions and the autograd function that
 joins them (counterpart of ops/pallas/tile_kernel2.py).
 
-The forward kernel (``csrc/tile_kernel2_fwd.cu``) replaces the Pallas TPU
-kernel ``make_forward_kernel`` in both of its call forms:
+The forward kernel (``csrc/tile32_fwd_subtile.cu``) replaces the Pallas
+TPU kernel ``make_forward_kernel`` in both of its call forms:
 
 - ``composite32_fwd`` — without per-pair n_touched (``_fwd_impl``
   ``with_ntouch=False``, pallas_call at tile_kernel2.py:662): every IRLS
@@ -12,21 +12,35 @@ kernel ``make_forward_kernel`` in both of its call forms:
   the blend-weight rule ``nt_weight`` (pallas_call at :642): the
   keyframing and ground-truth renders.
 
-The backward kernel (``csrc/tile_kernel2_bwd.cu``, wrapper
+The backward kernel (``csrc/tile32_bwd_subtile.cu``, wrapper
 ``composite32_bwd``) replaces ``make_backward_kernel`` (``_bwd_impl``,
 pallas_call at :699): per-pair gradient rows
 ``[d_mx, d_my, d_ca, d_cb, d_cc, d_opa, d_rgb(3), d_depth, 0 x 6]`` from
 the cotangents of color, depth and final T.
 
+Both f32 kernels run one CTA per 16x16 quarter of a tile, an 8x4 pixel
+block per warp, and drop a (pair, block) before the per-pixel walk where
+the conservative block test ``block_keep_plain`` (the kernels'
+``csrc/subtile_cull.cuh``, same operations) finds alpha < 1/255 at every
+pixel of the block; ``plain_walk(cull=True)`` and
+``plain_bwd_walk(cull=True)`` walk only the kept cells, and
+``subtile_cells`` counts the cells the kernels evaluate. The one-CTA-per-
+tile f32 kernels they replaced (``csrc/tile_kernel2_fwd.cu``,
+``csrc/tile_kernel2_bwd.cu``) stay as the yardstick wrappers
+``composite32_fwd_tile1024`` and ``composite32_bwd_tile1024``, counted on
+their own and launched by nothing on a path.
+
 Each wrapper takes ``bf16``: the reference's bfloat16 bodies of the same
 three call sites (``_chunk_terms(bf16=True)``, tile_kernel2.py:160-175,
-and the backward's bf16 branch, :488-508), which the trackers run under
-``kernel_bf16``. The falloff is evaluated in bfloat16 from f32 pixel
-deltas, every product and sum rounded to bfloat16 in the expression's
-order, the power clamped to <= 0, ``opa * exp(power)`` rounded once more
-and widened; transmittance and the sums stay f32. The backward rounds G,
-dx, dy and dL/dG to bfloat16 and forms the quadratic-form products in
-bfloat16, each widened before its f32 pixel sum. The bf16 kernels are
+and the backward's bf16 branch, :488-508; one-CTA-per-tile kernels in
+``csrc/tile_kernel2_fwd.cu`` and ``csrc/tile_kernel2_bwd.cu``), which the
+trackers run under ``kernel_bf16``. The falloff is evaluated in bfloat16
+from f32 pixel deltas, every product and sum rounded to bfloat16 in the
+expression's order, the power clamped to <= 0, ``opa * exp(power)``
+rounded once more and widened; transmittance and the sums stay f32. The
+backward rounds G, dx, dy and dL/dG to bfloat16 and forms the
+quadratic-form products in bfloat16, each widened before its f32 pixel
+sum. The bf16 kernels are
 separate C entries of the same sources with launch counters of their own
 (``launches_bf16``); the plain versions take ``bf16`` too and round
 exactly where the kernels do (torch rounds after every bfloat16 operation,
@@ -88,6 +102,14 @@ TPY = 32          # tile height in pixels
 P = TPX * TPY     # pixels per tile
 K = 128           # pair rows per chunk (the plan's range alignment)
 PLAIN_CHUNK = 32  # pair rows the plain version evaluates at once
+
+# the f32 kernels' sub-tile layout and block test (csrc/subtile_cull.cuh)
+CELL = 16             # a quarter CTA's edge: one rect16 cell
+BLOCK_W, BLOCK_H = 8, 4  # a warp's pixel block
+SUB_CHUNK = 64        # pair rows a quarter stages per step
+CULL_REL = 2.0 ** -18
+CULL_ABS = 2.0 ** -16
+PD_REL = 2.0 ** -16
 
 
 def grid_dims(width: int, height: int):
@@ -257,11 +279,71 @@ def _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight
     return _assemble(acc, T, ntouch, n_tx, n_ty, W, H, TPX), walked, passed
 
 
+def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor
+                     ) -> torch.Tensor:
+    """The sub-tile kernels' conservative block test
+    (``csrc/subtile_cull.cuh``: ``prepare`` then ``block_keep``, the same
+    f32 operations in the same order): False only where pair row ``f``
+    (..., 16) has opa * exp(power) < 1/255, as the kernels' f32
+    arithmetic computes it, at every pixel of the 8x4 block whose top-left
+    pixel is (xb, yb) (f32, broadcast against ``f[..., 0]``). The minimum
+    of q = ca dx^2 + 2 cb dx dy + cc dy^2 over the block's rectangle of
+    deltas (0 if the mean lies inside, else the least of the four edges'
+    1-D minima at stationary points clamped to the edge, from 1/ca and
+    1/cc) must exceed 2 (L + CULL_REL Smax + CULL_ABS), L = log(opa) -
+    log(1/255), Smax = 2 (ca max dx^2 + cc max dy^2): the margin covers
+    the rounding of the kernel's power, of this test, of expf and logf
+    (the source's note gives the argument). Rows with a non-finite mean,
+    conic or opacity and conics that are not clearly positive definite
+    get L = +inf and are kept."""
+    mx, my, ca, cb, cc, opa = (f[..., i] for i in range(6))
+    finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ca)
+              & torch.isfinite(cb) & torch.isfinite(cc)
+              & torch.isfinite(opa))
+    det = ca * cc - cb * cb
+    pd = (ca > 0.0) & (cc > 0.0) & (det > PD_REL * (ca * cc))
+    log_min = torch.log(torch.tensor(ALPHA_MIN, dtype=f.dtype))
+    L = torch.where(finite & pd, torch.log(opa) - log_min,
+                    torch.full_like(opa, float("inf")))
+    inv_ca = 1.0 / ca
+    inv_cc = 1.0 / cc
+    xlo = mx - (xb + float(BLOCK_W - 1))
+    xhi = mx - xb
+    ylo = my - (yb + float(BLOCK_H - 1))
+    yhi = my - yb
+    inside = (xlo <= 0.0) & (xhi >= 0.0) & (ylo <= 0.0) & (yhi >= 0.0)
+
+    def edge_min(a, lo, hi, ca_, cb_, cc_, inv_c):
+        d = torch.fmin(torch.fmax(-(cb_ * a) * inv_c, lo), hi)
+        return (ca_ * a * a + 2.0 * cb_ * a * d) + cc_ * d * d
+
+    qmin = torch.fmin(
+        torch.fmin(edge_min(xlo, ylo, yhi, ca, cb, cc, inv_cc),
+                   edge_min(xhi, ylo, yhi, ca, cb, cc, inv_cc)),
+        torch.fmin(edge_min(ylo, xlo, xhi, cc, cb, ca, inv_ca),
+                   edge_min(yhi, xlo, xhi, cc, cb, ca, inv_ca)))
+    qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
+    smax = 2.0 * (ca * torch.fmax(xlo * xlo, xhi * xhi)
+                  + cc * torch.fmax(ylo * ylo, yhi * yhi))
+    return ~(0.5 * qmin > L + CULL_REL * smax + CULL_ABS)
+
+
+def _pixel_blocks(n_tx: int, n_ty: int, dev):
+    """(xb, yb) f32, (n_tiles, 1, P): the top-left pixel of the 8x4 block
+    each pixel of each 32x32 tile belongs to."""
+    q = torch.arange(P, device=dev)
+    t_ar = torch.arange(n_tx * n_ty, device=dev)
+    xb = (t_ar % n_tx)[:, None] * TPX + (q % TPX // BLOCK_W * BLOCK_W)[None]
+    yb = (t_ar // n_tx)[:, None] * TPY + (q // TPX // BLOCK_H
+                                          * BLOCK_H)[None]
+    return (xb.to(torch.float32)[:, None], yb.to(torch.float32)[:, None])
+
+
 def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                n_ty: int, W: int, H: int, with_ntouch: bool = True,
                nt_weight: bool = False, tile: int = TPX, bf16: bool = False,
-               mxu: bool = False
-               ) -> Tuple[Composite2Out, torch.Tensor, torch.Tensor]:
+               mxu: bool = False, cull: bool = False, done_at: bool = False
+               ) -> tuple:
     """Plain PyTorch compositing over square tiles of edge ``tile`` (32 for
     B1, 16 for B3) on an n_tx x n_ty grid. Returns (outputs, pairs_walked,
     cells_passed) where pairs_walked[t] counts the pair rows tile t walked
@@ -277,7 +359,17 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
     acc += c w, no fused multiply-adds), so on the card the two agree bit
     for bit wherever their exp does. ``mxu`` (32x32 only) runs the MXU
     body instead (``_plain_walk_mxu``), which takes precedence over
-    ``bf16``."""
+    ``bf16``.
+
+    ``cull`` (32x32, f32 only) skips every cell whose (pair, 8x4 block)
+    ``block_keep_plain`` drops, as the sub-tile kernel does; the outputs
+    and the passed cells are the same as without it. ``done_at`` appends
+    a fourth result, (n_tiles, P) int64: for each pixel the offset in its
+    tile's run of the pair at which it was done, -1 outside the image and
+    2^62 where it never was (``subtile_cells`` reads it)."""
+    if (cull or done_at) and (mxu or bf16 or tile != TPX):
+        raise ValueError("cull and done_at are options of the f32 32x32 "
+                         "walk only")
     if mxu:
         if tile != TPX:
             raise ValueError("mxu is a body of the 32x32 kernels only")
@@ -293,6 +385,10 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
 
     px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev, tile)
     n_pix = tile * tile
+    if cull:
+        xb, yb = _pixel_blocks(n_tx, n_ty, dev)
+    never = 1 << 62
+    stop_at = torch.where(pix_in, never, -1)
 
     T = torch.ones(n_tiles, n_pix, dtype=f32, device=dev)
     done = ~pix_in
@@ -326,8 +422,11 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                    & (t16y_s >= f[..., 11:12]) & (t16y_s < f[..., 13:14]))
         ok = (row_ok[..., None] & rect_ok & (power <= 0.0)
               & (alpha >= ALPHA_MIN))                          # (S, k, P)
+        if cull:
+            ok &= block_keep_plain(f[..., None, :], xb[sel], yb[sel])
 
         T_s, done_s, acc_s = T[sel], done[sel], acc[sel]
+        stop_s = stop_at[sel]
         nt = torch.zeros(sel.numel(), chunk, dtype=f32, device=dev)
         for k in range(chunk):
             walked[sel] += (row_ok[:, k] & ~done_s.all(dim=1)).long()
@@ -345,11 +444,62 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                 nt[:, k] = (cond & pix_in[sel]).sum(dim=1).to(f32)
             T_s = torch.where(inc, T_incl, T_s)
             done_s = done_s | term
+            stop_s = torch.where(term, c * chunk + k, stop_s)
         T[sel], done[sel], acc[sel] = T_s, done_s, acc_s
+        stop_at[sel] = stop_s
         if with_ntouch:
             ntouch[idx[row_ok]] = nt[row_ok]
 
-    return _assemble(acc, T, ntouch, n_tx, n_ty, W, H, tile), walked, passed
+    out = _assemble(acc, T, ntouch, n_tx, n_ty, W, H, tile)
+    return (out, walked, passed, stop_at) if done_at else \
+        (out, walked, passed)
+
+
+def subtile_cells(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
+                  n_ty: int, stop_at: torch.Tensor, batch: int = 1 << 17
+                  ) -> Tuple[int, int]:
+    """The (pair, pixel) cells the f32 sub-tile kernels evaluate on a
+    32x32 plan, from ``plain_walk(..., done_at=True)``'s ``stop_at``:
+    (after the rect16 compaction and the block test, after the rect16
+    compaction alone). A warp's 8x4 block walks chunk c of SUB_CHUNK pair
+    rows of its tile's run if one of its pixels is not done at the
+    chunk's start (its stop offset >= c * SUB_CHUNK), and then evaluates
+    32 cells for each pair of the chunk that covers its quarter's rect16
+    cell and that ``block_keep_plain`` keeps. Counted in batches of
+    ``batch`` pair slots."""
+    dev = feat.device
+    n_tiles = n_tx * n_ty
+    start = ranges[:, 0].long()
+    n_pairs = (ranges[:, 1] - ranges[:, 0]).long()
+    # per tile and block (32 blocks of 8x4 pixels), the last stop offset
+    q = torch.arange(P, device=dev)
+    blk = (q // TPX // BLOCK_H) * (TPX // BLOCK_W) + q % TPX // BLOCK_W
+    last = torch.full((n_tiles, P // 32), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(1, blk[None].expand(n_tiles, -1), stop_at, "amax")
+    b_ar = torch.arange(P // 32, device=dev)
+    bx = (b_ar % (TPX // BLOCK_W)) * BLOCK_W                      # (32,)
+    by = (b_ar // (TPX // BLOCK_W)) * BLOCK_H
+    tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
+                                      n_pairs)
+    first = torch.cumsum(n_pairs, 0) - n_pairs
+    kept = rected = 0
+    for lo in range(0, tile_of.numel(), batch):
+        t = tile_of[lo:lo + batch]
+        j = torch.arange(lo, lo + t.numel(), device=dev) - first[t]
+        f = feat[start[t] + j]                                  # (S, 16)
+        x0 = (t % n_tx)[:, None] * TPX + bx[None]               # (S, 32)
+        y0 = (t // n_tx)[:, None] * TPY + by[None]
+        t16x = (x0 // CELL).to(torch.float32)
+        t16y = (y0 // CELL).to(torch.float32)
+        rect = ((t16x >= f[:, 10:11]) & (t16x < f[:, 12:13])
+                & (t16y >= f[:, 11:12]) & (t16y < f[:, 13:14]))
+        walks = (j // SUB_CHUNK * SUB_CHUNK)[:, None] <= last[t]
+        live = rect & walks
+        keep = block_keep_plain(f[:, None, :], x0.to(torch.float32),
+                                y0.to(torch.float32))
+        rected += int(live.sum())
+        kept += int((live & keep).sum())
+    return 32 * kept, 32 * rected
 
 
 def composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch=True,
@@ -408,6 +558,12 @@ def _variant(bf16: bool, mxu: bool) -> str:
     return ("_bf16" if bf16 else "") + ("_mxu" if mxu else "")
 
 
+def _fwd_lib(suffix: str) -> str:
+    """The library of a forward variant: the f32 sub-tile kernel, or the
+    one-CTA-per-tile bf16 / mxu bodies."""
+    return "tile_kernel2_fwd" if suffix else "tile32_fwd_subtile"
+
+
 def _count(wrapper, suffix: str):
     attr = "launches" + suffix
     setattr(wrapper, attr, getattr(wrapper, attr) + 1)
@@ -424,7 +580,7 @@ def composite32_fwd(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
         return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
                                  with_ntouch=False, bf16=bf16, mxu=mxu)
     suffix = _variant(bf16 and not mxu, mxu)
-    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
+    out = launch_fwd(_fwd_lib(suffix), feat, ranges, n_tx, n_ty, W, H,
                      False, False, "composite32_fwd" + suffix)
     _count(composite32_fwd, suffix)
     return out
@@ -449,7 +605,7 @@ def composite32_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
                                  with_ntouch=True, nt_weight=nt_weight,
                                  bf16=bf16, mxu=mxu)
     suffix = _variant(bf16 and not mxu, mxu)
-    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
+    out = launch_fwd(_fwd_lib(suffix), feat, ranges, n_tx, n_ty, W, H,
                      True, nt_weight, "composite32_fwd" + suffix)
     _count(composite32_fwd_ntouch, suffix)
     return out
@@ -458,6 +614,27 @@ def composite32_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
 composite32_fwd_ntouch.launches = 0
 composite32_fwd_ntouch.launches_bf16 = 0
 composite32_fwd_ntouch.launches_mxu = 0
+
+
+def composite32_fwd_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
+                             n_tx: int, n_ty: int, W: int, H: int,
+                             with_ntouch: bool = False,
+                             nt_weight: bool = False) -> Composite2Out:
+    """The f32 forward of the one-CTA-per-tile design that the sub-tile
+    kernel replaced (``csrc/tile_kernel2_fwd.cu``, C entry
+    ``composite32_fwd_tile1024``): a yardstick timed beside
+    ``composite32_fwd`` on the same plans, launched by no path."""
+    _check(feat, ranges, n_tx, n_ty)
+    if feat.device.type == "cpu":
+        return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
+                                 with_ntouch=with_ntouch, nt_weight=nt_weight)
+    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
+                     with_ntouch, nt_weight, "composite32_fwd_tile1024")
+    composite32_fwd_tile1024.launches += 1
+    return out
+
+
+composite32_fwd_tile1024.launches = 0
 
 
 def mxu_power_tile(feat: torch.Tensor, tx: int, ty: int) -> torch.Tensor:
@@ -520,7 +697,8 @@ def _to_tiles(img: torch.Tensor, n_tx: int, n_ty: int, tile: int
 
 def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
                    d_depth, d_T, n_tx: int, n_ty: int, W: int, H: int,
-                   tile: int = TPX, bf16: bool = False, mxu: bool = False
+                   tile: int = TPX, bf16: bool = False, mxu: bool = False,
+                   cull: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch backward of the compositing over square tiles of edge
     ``tile`` (32 for B2, 16 for B4). Returns (dfeat (B_al, 16),
@@ -543,9 +721,13 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
     dy and dL/dG rounded to bfloat16, each widened before its sum. Under
     ``mxu`` (32x32 only) the falloff is ``_mxu_power`` and a_un = opa
     exp(power) in f32; the walk, the linear transmittance and the products
-    (bfloat16 ones too under ``bf16``) stay."""
+    (bfloat16 ones too under ``bf16``) stay. ``cull`` (32x32, f32 only)
+    skips every cell whose (pair, 8x4 block) ``block_keep_plain`` drops,
+    as the sub-tile kernel does; the rows are the same as without it."""
     if mxu and tile != TPX:
         raise ValueError("mxu is a body of the 32x32 kernels only")
+    if cull and (mxu or bf16 or tile != TPX):
+        raise ValueError("cull is an option of the f32 32x32 walk only")
     dev = feat.device
     f32 = torch.float32
     chunk = PLAIN_CHUNK
@@ -556,6 +738,8 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
 
     px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev, tile)
     n_pix = tile * tile
+    if cull:
+        xb, yb = _pixel_blocks(n_tx, n_ty, dev)
 
     fwd = _to_tiles(torch.cat([color_sum, depth_sum[None], final_T[None]]),
                     n_tx, n_ty, tile)                          # (T, 5, P)
@@ -601,6 +785,8 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
                    & (t16y_s >= f[..., 11:12]) & (t16y_s < f[..., 13:14]))
         ok = (row_ok[..., None] & rect_ok & (power <= 0.0)
               & (alpha >= ALPHA_MIN))                          # (S, k, P)
+        if cull:
+            ok &= block_keep_plain(f[..., None, :], xb[sel], yb[sel])
         G_all = a_un / torch.clamp(opa, min=1e-12)
 
         T_s, done_s, pA_s = T[sel], done[sel], pA[sel]
@@ -626,7 +812,9 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
             G = torch.where(inc, G_all[:, k], zero)
             dLdG = fk[:, 5:6] * dLda
             conic = fk[:, 2:5]
-            dxk, dyk = dx[:, k], dy[:, k]
+            # masked too: a non-finite mean must not reach a skipped cell
+            dxk = torch.where(inc, dx[:, k], zero)
+            dyk = torch.where(inc, dy[:, k], zero)
             if bf16:
                 b = torch.bfloat16
                 G_, dLdG, conic = G.to(b), dLdG.to(b), conic.to(b)
@@ -690,10 +878,35 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
                                      final_T, d_color, d_depth, d_T, n_tx,
                                      n_ty, W, H, bf16=bf16, mxu=mxu)
     suffix = _variant(bf16, mxu)
+    dfeat = launch_bwd("tile_kernel2_bwd" if suffix else "tile32_bwd_subtile",
+                       feat, ranges, color_sum, depth_sum, final_T, d_color,
+                       d_depth, d_T, n_tx, n_ty, W, H,
+                       "composite32_bwd" + suffix)
+    _count(composite32_bwd, suffix)
+    return dfeat
+
+
+def composite32_bwd_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
+                             color_sum: torch.Tensor, depth_sum: torch.Tensor,
+                             final_T: torch.Tensor, d_color: torch.Tensor,
+                             d_depth: torch.Tensor, d_T: torch.Tensor,
+                             n_tx: int, n_ty: int, W: int, H: int
+                             ) -> torch.Tensor:
+    """The f32 backward of the one-CTA-per-tile design that the sub-tile
+    kernel replaced (``csrc/tile_kernel2_bwd.cu``, C entry
+    ``composite32_bwd_tile1024``): a yardstick timed beside
+    ``composite32_bwd`` on the same plans, launched by no path."""
+    _check(feat, ranges, n_tx, n_ty)
+    _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
+                  final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
+    if feat.device.type == "cpu":
+        return composite32_bwd_plain(feat, ranges, color_sum, depth_sum,
+                                     final_T, d_color, d_depth, d_T, n_tx,
+                                     n_ty, W, H)
     dfeat = launch_bwd("tile_kernel2_bwd", feat, ranges, color_sum,
                        depth_sum, final_T, d_color, d_depth, d_T, n_tx, n_ty,
-                       W, H, "composite32_bwd" + suffix)
-    _count(composite32_bwd, suffix)
+                       W, H, "composite32_bwd_tile1024")
+    composite32_bwd_tile1024.launches += 1
     return dfeat
 
 
@@ -726,6 +939,7 @@ composite32_bwd.launches = 0
 composite32_bwd.launches_bf16 = 0
 composite32_bwd.launches_mxu = 0
 composite32_bwd.launches_bf16_mxu = 0
+composite32_bwd_tile1024.launches = 0
 
 
 class CompositeFn(torch.autograd.Function):

@@ -426,3 +426,97 @@ def test_abl16_kernel_matches_plain(cuda, variant):
         assert abl16.run.launches[variant] == before + 1
         assert bool(torch.isfinite(got).all())
         assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
+
+
+def _subtile_plan(cuda):
+    """The sub-tile kernels' hard cases on one plan: a ragged 333x197 view
+    of the room (edge tiles and quarters partly or wholly outside the
+    image), runs over several 64-row chunks, one tile whose run is empty,
+    and, in the longest run, rows the block test must keep and the walk
+    must skip or include as the plain version does: a non-PD conic, a NaN
+    mean, and means on a pixel with opacity at 1/255 and one ulp below."""
+    W, H = 333, 197
+    gm, cam = _room(cuda, n=30000, W=W, H=H)
+    prep = gmath.preprocess(
+        gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
+        cam.w2c(), cam.projection(), torch.zeros(6, device=cuda), cam.fx,
+        cam.fy, W, H, cam.tanfovx, cam.tanfovy, low_pass=0.3)
+    plan = make_plan(prep, W, H, 1 << 19, radius_scale=1.1, radius_pad=2.0)
+    assert int(plan.overflow) == 0
+    feat = pair_gather(pack_table(prep), plan).detach().contiguous().clone()
+    ranges = plan.ranges.clone()
+    n_tx, n_ty = tk.grid_dims(W, H)
+    runs = (ranges[:, 1] - ranges[:, 0]).long()
+    assert int(runs.max()) > 3 * tk.SUB_CHUNK
+    t = int(torch.argmax(runs))
+    a = int(ranges[t, 0])
+    x0, y0 = (t % n_tx) * 32 + 5.0, (t // n_tx) * 32 + 9.0
+    alpha_min = torch.tensor(tk.ALPHA_MIN, dtype=torch.float32)
+    feat[a + 3, 3] = 2.0 * torch.sqrt(feat[a + 3, 2] * feat[a + 3, 4])
+    feat[a + 70, 0] = float("nan")
+    for r, opa in ((a + 5, alpha_min),
+                   (a + 130, torch.nextafter(alpha_min,
+                                             torch.tensor(0.0)))):
+        feat[r, 0:6] = torch.tensor([x0, y0, 0.3, 0.05, 0.2, float(opa)])
+        feat[r, 10:14] = torch.tensor([0.0, 0.0, 1e4, 1e4])
+    empty = next(i for i in range(n_tx * n_ty)
+                 if i != t and int(runs[i]) > 0)
+    ranges[empty, 1] = ranges[empty, 0]
+    return feat, ranges.contiguous(), n_tx, n_ty, W, H
+
+
+@pytest.mark.parametrize("with_ntouch,nt_weight",
+                         [(False, False), (True, False), (True, True)])
+def test_subtile_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
+                                                    nt_weight):
+    """B1' / B1 (the sub-tile kernel) and PR 5's design (the tile1024
+    yardstick) bit for bit against the plain version."""
+    feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda)
+    ref = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+                               nt_weight)
+    wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
+    before = (wrapper.launches, tk.composite32_fwd_tile1024.launches)
+    got = (tk.composite32_fwd_ntouch(feat, ranges, n_tx, n_ty, W, H,
+                                     nt_weight) if with_ntouch
+           else tk.composite32_fwd(feat, ranges, n_tx, n_ty, W, H))
+    old = tk.composite32_fwd_tile1024(feat, ranges, n_tx, n_ty, W, H,
+                                      with_ntouch, nt_weight)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, tk.composite32_fwd_tile1024.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b, c in zip(got, ref, old):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
+    if with_ntouch:
+        assert float(got.n_touched_pairs.sum()) > 0
+
+
+def test_subtile_backward_matches_plain_on_hard_plan(cuda):
+    """B2 (the sub-tile kernel, rows summed across its cluster of four in
+    a fixed order) against the plain version within BWD_COL_TOL of each
+    column's max, the same zero rows, and bit for bit the same rows from
+    two launches."""
+    feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda)
+    fwd = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H,
+                               with_ntouch=False)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    cot = torch.randn(5, H, W, generator=g, device=cuda)
+    args = (feat, ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
+            cot[0:3], cot[3], cot[4], n_tx, n_ty, W, H)
+    before = tk.composite32_bwd.launches
+    got = tk.composite32_bwd(*args)
+    again = tk.composite32_bwd(*args)
+    old = tk.composite32_bwd_tile1024(*args)
+    ref = tk.composite32_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert tk.composite32_bwd.launches == before + 2
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[:, 10:].any())
+    for col in range(10):
+        scale = float(ref[:, col].abs().max())
+        assert scale > 0, col
+        for rows in (got, old):
+            assert float((rows[:, col] - ref[:, col]).abs().max()) \
+                <= 1e-5 * scale, col
+    assert torch.equal(got.any(dim=1), ref.any(dim=1))
