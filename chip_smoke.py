@@ -138,9 +138,23 @@ plan in turns (old, new, new, old), beside the cells the new kernels
 evaluate (post_cull_cells, tk.subtile_cells) and the tile-walk's. No
 path may launch a ``*_tile1024`` wrapper. Every compositing bound
 charges only the cells the function needs (bound_ms), with PRs 1-5's
-walk bound beside it (walk_bound_ms). A failed gate is printed and the
-run goes on; it exits non-zero before the result lines if any gate
-failed. Without CUDA it exits non-zero before printing any result.
+walk bound beside it (walk_bound_ms).
+
+The slice after it: B4 is csrc/tile16_bwd_subtile.cu (the same sub-tile
+design on a 16x16 tile, no cluster) and B1'-mxu / B1-mxu are
+csrc/tile32_fwd_subtile_mxu.cu (the sub-tile layout on the tensor-core
+falloff, the block test with a margin for its rounding). Phase 2 holds
+each to its gates as before (B4: columns within BWD_COL_TOL, the same
+rows from two launches; the mxu kernels: MXU_*), times B4 in turns
+against the one-thread-per-pixel design it replaced
+(``composite16_bwd_walk``: walk_ms) on the mapping plan and the mxu
+kernels against the one-CTA-per-tile mxu design
+(``composite32_fwd_mxu_tile1024``: tile1024_ms, also held to the MXU
+gates) at s=4/2/1 and under nt_weight, each beside the cells it
+evaluates. No path may launch a yardstick; each has an entry of its own
+in the kernels line (launches 0). A failed gate is printed and the run
+goes on; it exits non-zero before the result lines if any gate failed.
+Without CUDA it exits non-zero before printing any result.
 """
 
 import json
@@ -600,8 +614,10 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     (32x32; with PR 5's design timed in turns beside it and the cells the
     sub-tile kernel evaluates), under ``bf16`` or ``mxu`` their bfloat16
     or MXU bodies (and the f32 kernel's time on the same plan beside
-    them), or under ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile
-    grid). Plain time unless not ``time_plain``."""
+    them; the mxu sub-tile kernel, like the f32 one, beside the
+    one-CTA-per-tile mxu design in turns and with its cells), or under
+    ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile grid). Plain
+    time unless not ``time_plain``."""
     tile = 16 if tile16 else 32
 
     def kernel(bf16=bf16, mxu=mxu):
@@ -615,12 +631,15 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         return tk.plain_walk(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                              nt_weight, tile=tile, bf16=bf16, mxu=mxu)
 
-    # the f32 32x32 forward: the sub-tile kernel, beside PR 5's design
+    # the f32 32x32 forward: the sub-tile kernel, beside the
+    # one-CTA-per-tile design; under mxu (and not bf16) the mxu sub-tile
+    # kernel beside that design's mxu body
     subtile = not (tile16 or bf16 or mxu)
+    yard = subtile or (mxu and not bf16)
     torch.cuda.synchronize()
-    if subtile:
+    if yard:
         ref, walked, passed, stop_at = tk.plain_walk(
-            feat, ranges, n_tx, n_ty, w, h, with_ntouch, nt_weight,
+            feat, ranges, n_tx, n_ty, w, h, with_ntouch, nt_weight, mxu=mxu,
             done_at=True)
     else:
         (ref, walked, passed) = plain()
@@ -644,20 +663,33 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     over_1e3 = int((diff > 1e-3).sum())
     over_tol = sum(int((diffs[k] > MXU_IMG_TOL[k]).sum()) for k in diffs)
     extra = {}
-    if subtile:
+    if yard:
+        yardstick = (tk.composite32_fwd_mxu_tile1024 if mxu
+                     else tk.composite32_fwd_tile1024)
+
         def old():
-            return tk.composite32_fwd_tile1024(feat, ranges, n_tx, n_ty, w,
-                                               h, with_ntouch, nt_weight)
+            return yardstick(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
+                             nt_weight)
         old_out = old()
         extra["tile1024_max_abs_err"] = max(
             float((a - b).abs().max()) for a, b in zip(old_out[:3], ref[:3]))
         extra["tile1024_nt_mismatch"] = int(
             (old_out.n_touched_pairs != ref.n_touched_pairs).sum())
+        if mxu:
+            # the two mxu designs apart: the tensor cores may sum a
+            # pixel's products otherwise in another fragment position
+            apart = torch.cat([(a - b).abs().flatten()
+                               for a, b in zip(got, old_out)])
+            extra.update(
+                vs_tile1024_max_abs_diff=float(apart.max()),
+                vs_tile1024_values_differing=int((apart > 0).sum()),
+                tile1024_gate=mxu_gate_failure(old_out, ref, live))
         # in turns: PR 5's design, the new kernel twice, PR 5's again
         turns = [time_ms(f) for f in (old, kernel, kernel, old)]
         ms = (turns[1] + turns[2]) / 2
         extra.update(tile1024_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
-        kept, rected = tk.subtile_cells(feat, ranges, n_tx, n_ty, stop_at)
+        kept, rected = tk.subtile_cells(feat, ranges, n_tx, n_ty, stop_at,
+                                        mxu=mxu)
         extra.update(post_cull_cells=kept, rect_cells=rected)
     else:
         ms = time_ms(kernel)
@@ -704,17 +736,12 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     if not finite:
         fail(f"{name}: non-finite kernel output")
     if mxu:
-        if over_tol > MXU_FLIP_FRAC * diff.numel() \
-                or any(p999[k] > MXU_P999_TOL[k] for k in p999) \
-                or any(errs[k] > MXU_FLIP_TOL[k] for k in errs):
-            fail(f"{name} (mxu): kernel differs from plain by {errs}, "
-                 f"{over_tol} of {diff.numel()} values above {MXU_IMG_TOL}, "
-                 f"99.9th percentiles {p999} (limits: "
-                 f"{MXU_FLIP_FRAC:.0e} of the values, {MXU_P999_TOL}, each "
-                 f"within {MXU_FLIP_TOL})")
-        if nt_bad > MXU_NT_MISMATCH_FRAC * live:
-            fail(f"{name} (mxu): {nt_bad} n_touched mismatches of {live} "
-                 "live pairs")
+        gate = mxu_gate_failure(got, ref, live)
+        if gate:
+            fail(f"{name} (mxu): {gate}")
+        if yard and extra["tile1024_gate"]:
+            fail(f"{name} (mxu): the one-CTA-per-tile design (tile1024): "
+                 f"{extra['tile1024_gate']}")
     else:
         if max(errs.values()) > IMG_TOL:
             fail(f"{name}: kernel differs from plain by {errs}")
@@ -735,6 +762,29 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     if bf16 and rec["differs_from_f32"] <= IMG_TOL:
         fail(f"{name}: the bf16 kernel's image equals the f32 kernel's")
     return rec
+
+
+def mxu_gate_failure(got, ref, live):
+    """What an mxu forward's outputs ``got`` break of the MXU gates against
+    its plain version's ``ref`` (``live`` pairs), or None."""
+    diffs = {k: (a - b).abs().flatten() for k, a, b in zip(
+        ("color", "depth", "T"), got[:3], ref[:3])}
+    n = sum(d.numel() for d in diffs.values())
+    errs = {k: float(d.max()) for k, d in diffs.items()}
+    p999 = {k: float(torch.quantile(d, 0.999)) for k, d in diffs.items()}
+    over = sum(int((diffs[k] > MXU_IMG_TOL[k]).sum()) for k in diffs)
+    nt_bad = int((got.n_touched_pairs != ref.n_touched_pairs).sum())
+    msgs = []
+    if over > MXU_FLIP_FRAC * n \
+            or any(p999[k] > MXU_P999_TOL[k] for k in p999) \
+            or any(errs[k] > MXU_FLIP_TOL[k] for k in errs):
+        msgs.append(f"differs from plain by {errs}, {over} of {n} values "
+                    f"above {MXU_IMG_TOL}, 99.9th percentiles {p999} "
+                    f"(limits: {MXU_FLIP_FRAC:.0e} of the values, "
+                    f"{MXU_P999_TOL}, each within {MXU_FLIP_TOL})")
+    if nt_bad > MXU_NT_MISMATCH_FRAC * live:
+        msgs.append(f"{nt_bad} n_touched mismatches of {live} live pairs")
+    return "; ".join(msgs) or None
 
 
 def kernel_grid(w, h, tile16=False):
@@ -888,10 +938,11 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     for bit to the first and the cells it evaluates; under ``bf16``
     and/or ``mxu`` B2-bf16, B2-mxu or B2-bf16-mxu on the
     matching forward's planes with the f32 kernel's time beside it, or
-    under ``tile16`` B4 on a 16-px plan) under ``cot_fn``'s loss cotangent
-    and a seeded one: per-column error, dL/dtau through both routes, and
-    kernel / bound times, and the plain version's unless not
-    ``time_plain``."""
+    under ``tile16`` B4 on a 16-px plan, likewise beside the
+    one-thread-per-pixel design, composite16_bwd_walk, with a second
+    launch and its cells) under ``cot_fn``'s loss cotangent and a seeded
+    one: per-column error, dL/dtau through both routes, and kernel / bound
+    times, and the plain version's unless not ``time_plain``."""
     tau = torch.zeros(6, device=dev, requires_grad=True)
     prep = prep_fn(tau)
     plan = make_plan(prep, w, h, cap, radius_scale=radius_scale,
@@ -904,7 +955,13 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     if tile16:
         def kernel(*a):
             return tk16.composite16_bwd(*a[:8], n_tx // 2, n_ty // 2, w, h)
+
+        def yardstick(*a):
+            return tk16.composite16_bwd_walk(*a[:8], n_tx // 2, n_ty // 2, w,
+                                             h)
     else:
+        yardstick = tk.composite32_bwd_tile1024
+
         def kernel(*a, bf16=bf16, mxu=mxu):
             return tk.composite32_bwd(*a, bf16=bf16, mxu=mxu)
     with torch.no_grad():
@@ -917,16 +974,19 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
     cots = {"loss": cot_fn(planes, target),
             "seeded": (seeded[0:3], seeded[3], seeded[4])}
-    # the f32 32x32 backward: the sub-tile kernel, beside PR 5's design;
-    # the cells it evaluates follow the forward walk's stops
-    subtile = not (tile16 or bf16 or mxu)
+    # the f32 backwards: the sub-tile kernels, B2 beside the
+    # one-CTA-per-tile design (tile1024), B4 beside the one-thread-per-
+    # pixel one (walk); the cells they evaluate follow the forward walk's
+    # stops
+    subtile = not (bf16 or mxu)
+    yk = "walk" if tile16 else "tile1024"
     cull = {}
     if subtile:
         with torch.no_grad():
             stop_at = tk.plain_walk(feat_c, ranges, n_tx, n_ty, w, h, False,
-                                    done_at=True)[3]
+                                    tile=tile, done_at=True)[3]
             kept, rected = tk.subtile_cells(feat_c, ranges, n_tx, n_ty,
-                                            stop_at)
+                                            stop_at, tile=tile)
         cull = dict(post_cull_cells=kept, rect_cells=rected)
     live = int((ranges[:, 1] - ranges[:, 0]).sum())
     recs = []
@@ -940,13 +1000,14 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
                                                       bf16=bf16, mxu=mxu)
             if subtile:
                 again = kernel(*args)
-                old_rows = tk.composite32_bwd_tile1024(*args)
+                old_rows = yardstick(*args)
         torch.cuda.synchronize()
         if subtile:
-            # the cluster sums the quarters in a fixed order: a second
-            # launch gives the same rows bit for bit
+            # warps (and B2's cluster the quarters) are summed in a fixed
+            # order: a second launch gives the same rows bit for bit
             extra["repeat_bit_equal"] = bool(torch.equal(got, again))
-            extra["tile1024_max_col_rel_err"] = max(
+            extra[f"{yk}_max_abs_err"] = float((old_rows - ref).abs().max())
+            extra[f"{yk}_max_col_rel_err"] = max(
                 float((old_rows[:, c] - ref[:, c]).abs().max())
                 / max(float(ref[:, c].abs().max()), 1e-30)
                 for c in range(tk.N_ROWS))
@@ -967,15 +1028,16 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         with torch.no_grad():
             if subtile:
                 def old():
-                    return tk.composite32_bwd_tile1024(*args)
+                    return yardstick(*args)
 
                 def new():
                     return kernel(*args)
-                # in turns: PR 5's design, the new kernel twice, PR 5's
+                # in turns: the earlier design, the new kernel twice, the
+                # earlier one again
                 turns = [time_ms(f) for f in (old, new, new, old)]
                 ms = (turns[1] + turns[2]) / 2
-                extra.update(tile1024_ms=(turns[0] + turns[3]) / 2,
-                             turns_ms=turns)
+                extra.update({f"{yk}_ms": (turns[0] + turns[3]) / 2,
+                              "turns_ms": turns})
             else:
                 ms = time_ms(lambda: kernel(*args))
             plain_ms = (time_ms(lambda: tk.plain_bwd_walk(
@@ -1040,9 +1102,9 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
                  f"{dtau_rel:.3e} relative (limit {dtau_tol})")
         if subtile and not extra["repeat_bit_equal"]:
             fail(f"{label} {name}/{kind}: two launches gave different rows")
-        if subtile and extra["tile1024_max_col_rel_err"] > col_tol:
-            fail(f"{label} {name}/{kind}: PR 5's design (tile1024) differs "
-                 f"from plain by {extra['tile1024_max_col_rel_err']:.3e} of "
+        if subtile and extra[f"{yk}_max_col_rel_err"] > col_tol:
+            fail(f"{label} {name}/{kind}: the earlier design ({yk}) differs "
+                 f"from plain by {extra[f'{yk}_max_col_rel_err']:.3e} of "
                  "a column's max")
         if bf16 and mxu and bf16_effect <= plain_gap:
             fail(f"{label} {name}/{kind}: the bf16 products moved the rows "
@@ -1754,14 +1816,19 @@ WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
             "composite32_fwd_tile1024": (tk.composite32_fwd_tile1024,
                                          "launches"),
             "composite32_bwd_tile1024": (tk.composite32_bwd_tile1024,
-                                         "launches")}
+                                         "launches"),
+            "composite32_fwd_mxu_tile1024": (
+                tk.composite32_fwd_mxu_tile1024, "launches"),
+            "composite16_bwd_walk": (tk16.composite16_bwd_walk, "launches")}
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
                 "composite32_bwd_bf16")
-# PR 5's f32 design, timed beside the sub-tile kernels in phase 2 only:
-# no path may launch it
-YARDSTICKS = ("composite32_fwd_tile1024", "composite32_bwd_tile1024")
+# the designs the sub-tile kernels replaced (the one-CTA-per-tile f32
+# and mxu 32x32 bodies, the one-thread-per-pixel B4), timed beside them
+# in phase 2 only: no path may launch one
+YARDSTICKS = ("composite32_fwd_tile1024", "composite32_bwd_tile1024",
+              "composite32_fwd_mxu_tile1024", "composite16_bwd_walk")
 
 
 def count_of(name):
@@ -2691,15 +2758,21 @@ def run(dev):
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
             library_ms=None, shape=c["shape"]))
+    # B4 (sub-tile) with the one-thread-per-pixel design's time on the
+    # same plan in the same call (walk_ms) and the cells it evaluates
     c = next(c for c in b4_cases if c["cotangent"] == "loss")
     kernels.append(dict(
         name="composite16_bwd", route="cuda",
-        source=csrc + "tile_kernel16_bwd.cu", replaces=f"{pallas16}:622",
+        source=csrc + "tile16_bwd_subtile.cu", replaces=f"{pallas16}:622",
         launches=total["composite16_bwd"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-        bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
-        library_ms=None, shape=c["shape"]))
+        bound_by=c["bound_by"], library_ms=None, shape=c["shape"],
+        walk_ms=c["walk_ms"], repeat_bit_equal=c["repeat_bit_equal"],
+        post_cull_cells=c["post_cull_cells"], rect_cells=c["rect_cells"],
+        tile_walk_cells=c["walked_cells"],
+        walk_bound_ms=c["walk_bound_ms"]))
+    b4 = c
     # the bf16 variants at the s=2 tracker plan (forward) and the s=1
     # exact plan (backward, loss cotangent), the f32 kernel's time on the
     # same plan beside each; their bound is the f32 kernels' operation
@@ -2726,24 +2799,32 @@ def run(dev):
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
         bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
         library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
-    # the mxu variants likewise: the s=2 tracker plan (forward) and the
-    # s=1 polish plan (backward, loss cotangent), the f32 kernel's time on
-    # the same plan beside each; the bound charges the tensor cores' share
-    # at the TF32 peak beside the CUDA cores' at the FP32 peak
+    # the mxu variants likewise: the s=2 tracker plan (forward: the
+    # sub-tile mxu kernel, with the one-CTA-per-tile mxu design's time
+    # and the cells as for B1') and the s=1 polish plan (backward, loss
+    # cotangent), the f32 kernel's time on the same plan beside each; the
+    # bound charges the tensor cores' share at the TF32 peak beside the
+    # CUDA cores' at the FP32 peak
+    mxu_fwd = {}
     for name, with_nt, line in (("composite32_fwd_mxu", False, 662),
                                 ("composite32_fwd_ntouch_mxu", True, 642)):
-        c = next(c for c in cases_mxu if c["case"] == "room_s2_mxu"
-                 and c["with_ntouch"] == with_nt and not c["nt_weight"])
+        c = mxu_fwd[with_nt] = next(
+            c for c in cases_mxu if c["case"] == "room_s2_mxu"
+            and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile_kernel2_fwd.cu",
+            name=name, route="cuda",
+            source=csrc + "tile32_fwd_subtile_mxu.cu",
             replaces=f"{pallas}:{line} (mxu=True, _mxu_power :96-128, "
                      "log-space T :279-289)",
             launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
             p999_abs_err=c["p999_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
+            bound_by=c["bound_by"],
             bound_tensor_core_ms=c["bound_tensor_core_ms"], library_ms=None,
-            f32_ms=c["f32_ms"], shape=c["shape"]))
+            f32_ms=c["f32_ms"], shape=c["shape"],
+            vs_tile1024_max_abs_diff=c["vs_tile1024_max_abs_diff"],
+            vs_tile1024_values_differing=c["vs_tile1024_values_differing"],
+            **subtile_keys(c)))
     for name, case in (("composite32_bwd_mxu", "room_s1_polish_mxu"),
                        ("composite32_bwd_bf16_mxu",
                         "room_s1_polish_bf16_mxu")):
@@ -2758,6 +2839,29 @@ def run(dev):
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
             library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
+    # the yardsticks: the designs the sub-tile kernels replaced, on the
+    # same plans in the same calls, launched by no path (launches 0)
+    f32_fwd = pick(False)
+    b2 = next(c for c in b2_cases
+              if c["case"] == "room_s1_polish" and c["cotangent"] == "loss")
+    for name, c, src, line, err, ms in (
+            ("composite32_fwd_tile1024", f32_fwd, "tile_kernel2_fwd.cu",
+             f"{pallas}:662", f32_fwd["tile1024_max_abs_err"],
+             f32_fwd["tile1024_ms"]),
+            ("composite32_bwd_tile1024", b2, "tile_kernel2_bwd.cu",
+             f"{pallas}:699", b2["tile1024_max_abs_err"], b2["tile1024_ms"]),
+            ("composite32_fwd_mxu_tile1024", mxu_fwd[False],
+             "tile_kernel2_fwd.cu", f"{pallas}:662 (mxu=True)",
+             mxu_fwd[False]["tile1024_max_abs_err"],
+             mxu_fwd[False]["tile1024_ms"]),
+            ("composite16_bwd_walk", b4, "tile_kernel16_bwd.cu",
+             f"{pallas16}:622", b4["walk_max_abs_err"], b4["walk_ms"])):
+        kernels.append(dict(
+            name=name, route="cuda", source=csrc + src,
+            replaces=line + " (yardstick)", launches=total[name],
+            max_abs_err=err, ms=ms, plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            shape=c["shape"]))
     # B5: one entry per variant, at the script's shape; launches from the
     # script's own run (phase_abl16)
     for v, r in abl.items():

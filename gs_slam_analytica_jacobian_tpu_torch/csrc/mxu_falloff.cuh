@@ -1,5 +1,6 @@
-// The Gaussian falloff on the tensor cores, shared by the forward
-// (tile_kernel2_fwd.cu) and the backward (tile_kernel2_bwd.cu) under mxu.
+// The Gaussian falloff on the tensor cores, shared by the forwards
+// (tile32_fwd_subtile_mxu.cu; tile_kernel2_fwd.cu, the one-CTA-per-tile
+// yardstick) and the backward (tile_kernel2_bwd.cu) under mxu.
 //
 // Replaces the MXU bodies of the Pallas TPU kernels in
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py
@@ -46,7 +47,8 @@ using namespace nvcuda;
 
 constexpr int kG = 8;       // basis columns (6 used, 2 zero)
 constexpr int kBlock = 16;  // pairs per power block (the fragments' M)
-constexpr int kPix = 32;    // pixels per warp: one tile row (two N = 16)
+constexpr int kPix = 32;    // pixels per warp (two N = 16): a tile row,
+                            // or the sub-tile kernel's 8x4 block
 constexpr float kHalfTile = 15.5f;  // (32 - 1) / 2
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 8, wmma::precision::tf32,
@@ -73,7 +75,7 @@ __device__ __forceinline__ void g8_row(float mx, float my, float ca,
 }
 
 // Lane ``lane`` writes its pixel's P8 column into ``p8`` (8 x 32,
-// row-major): the warp's pixels are one tile row, tile-local (pxl, pyl).
+// row-major): the warp's 32 pixels in lane order, tile-local (pxl, pyl).
 __device__ __forceinline__ void p8_column(float pxl, float pyl, float* p8,
                                           int lane) {
   p8[0 * kPix + lane] = pxl * pxl;

@@ -1,15 +1,17 @@
-// What the 16x16 sub-tile compositing kernels (tile32_fwd_subtile.cu,
-// tile32_bwd_subtile.cu) share: the CTA and warp layout over a 32x32
-// tile, the conservative per-warp block test, the rect16 compaction of a
-// staged chunk, and the asynchronous staging of a chunk of pair rows
+// What the sub-tile compositing kernels (tile32_fwd_subtile.cu,
+// tile32_fwd_subtile_mxu.cu, tile32_bwd_subtile.cu, tile16_bwd_subtile.cu)
+// share: the CTA and warp layout, the conservative per-warp block test
+// (with its margin for the tensor-core falloff), the rect16 compaction of
+// a staged chunk, and the asynchronous staging of a chunk of pair rows
 // (one bulk copy, completion on an mbarrier).
 //
 // Layout. A 32x32 tile's four 16x16 quarters are four CTAs of 256
-// threads (blockIdx.x = 4 * tile + quarter, quarter = qy * 2 + qx). A
-// quarter is exactly one 16-px cell of the plan's rect16 boxes, so the
-// rect test is uniform over the CTA. Warp w owns the 8x4 pixel block at
-// (8 (w & 1), 4 (w >> 1)) of its quarter; lane l is the pixel (l & 7,
-// l >> 3) of that block.
+// threads (geometry: blockIdx.x = 4 * tile + quarter, quarter = qy * 2 +
+// qx); a 16x16 tile of the 16-px plan is one CTA (geometry16: blockIdx.x
+// = tile). Either way the CTA's 16x16 pixels are exactly one 16-px cell
+// of the plan's rect16 boxes, so the rect test is uniform over the CTA.
+// Warp w owns the 8x4 pixel block at (8 (w & 1), 4 (w >> 1)) of its cell;
+// lane l is the pixel (l & 7, l >> 3) of that block.
 //
 // The block test, block_keep. A (pair, block) is dropped only where, at
 // every pixel of the 8x4 block, opa * expf(power) < 1/255 as the kernel's
@@ -45,6 +47,49 @@
 // alpha < 1/255 at every pixel (a negative one gives NaN: kept). The plain PyTorch version is
 // ops/tile_kernel2.py::block_keep_plain, with the same operations in the
 // same order.
+//
+// The margin under mxu (tile32_fwd_subtile_mxu.cu). There the kernel's
+// power is not the direct f32 form but G8 . P8 (mxu_falloff.cuh): the
+// tile-local expansion about the 32x32 tile's centre (cx, cy), with
+// mxl = mx - cx, myl = my - cy and |pxl|, |pyl| <= 15.5 at every pixel of
+// the tile, accumulated by the tensor cores; its plain version
+// (ops/tile_kernel2.py::_mxu_form) is an f32 torch.matmul of the same G6
+// and P6. Both round relative to the expansion's terms, which can exceed
+// the block's Smax by orders of magnitude where the mean lies inside the
+// tile and far from its centre. Every term, and every intermediate of
+// g8_row, is at most
+//   Mmag = 240.25 (0.5|ca| + |cb| + 0.5|cc|)
+//        + 15.5 (|ca mxl| + |cb myl| + |cb mxl| + |cc myl|)
+//        + 0.5 (|ca| mxl^2 + 2 |cb mxl myl| + |cc| myl^2)
+// in magnitude (>= M = 240.25 (0.5|ca| + |cb| + 0.5|cc|) + 15.5 (|g3| +
+// |g4|) + |g5|: Mmag bounds g3, g4 and g5 by the sums of their products'
+// magnitudes, since the rounding of g8_row is relative to those). The
+// distance from the exact power -q(mx - x, my - y) / 2:
+// - the rounding of mxl and myl (one subtraction each, u relative) moves
+//   the expansion's deltas by u |mxl|, u |myl|: at most 2u Mmag;
+// - g8_row's products and sums (-fmad=false, one rounding each; the
+//   factors -0.5 and 2 are exact): g3 and g4 2u of their products, g5 4u
+//   of its three: at most 4u Mmag (P8 is exact);
+// - the kernel: split3_tf32 keeps each g exactly and every TF32 product
+//   is exact in f32; the tensor core adds them in an order and with a
+//   rounding of its own. Modelled as steps that align at most five terms
+//   (four products and the running sum) to the largest and truncate,
+//   each step is off by at most 12u of the sum of its terms' magnitudes,
+//   and a power takes at most six steps (three m16n16k8 products, k = 8
+//   in two steps of four): at most 72u Mmag;
+// - the plain version: an f32 matmul of depth 6 in any order, with or
+//   without fused multiply-adds: at most 6u Mmag.
+// So the kernel's power lies within 78u Mmag of the exact power and the
+// plain version's within 12u Mmag. Under mxu a row's L carries
+// kCullMxu * Mmag more, kCullMxu = 2^-16 = 256u (3.3 times the kernel's
+// bound; Mmag's own f32 evaluation is a few u off, which that room
+// covers), formed once per staged row (prepare_mxu) beside its G8 row.
+// The block test's own rounding stays covered by kCullRel * Smax, expf
+// and logf by kCullAbs. A culled pair has alpha < 1/255 at every pixel of
+// the block, so its alpha_eff is 0 and log1p(0) = 0: skipping it leaves
+// the log-space prefix, T and the done flag bit for bit as they were. The
+// plain PyTorch version is block_keep_plain(..., centre=(cx, cy)), the
+// same operations in the same order.
 
 #pragma once
 
@@ -65,37 +110,54 @@ constexpr float kTEps = 1e-4f;
 constexpr float kCullRel = 3.814697265625e-06f;  // 2^-18
 constexpr float kCullAbs = 1.52587890625e-05f;   // 2^-16
 constexpr float kPdRel = 1.52587890625e-05f;     // 2^-16
+constexpr float kCullMxu = 1.52587890625e-05f;   // 2^-16
+constexpr float kHalfTile = 15.5f;     // |pxl|, |pyl| in a 32x32 tile
+constexpr float kHalfTileSq = 240.25f;
 constexpr unsigned kFull = 0xffffffffu;
 
 // The geometry of this CTA and thread.
 struct Geometry {
-  int tile, tx, ty;
-  float t16x, t16y;  // the quarter's 16-px cell
+  int tile, tx, ty;  // the tile and its column and row on the plan's grid
+  float t16x, t16y;  // the CTA's 16-px cell
   int xb, yb;        // the warp's block origin
   int x, y;          // this thread's pixel
 };
 
+// the cell (cx, cy) of 16-px cells, its warp blocks and pixels
+__device__ __forceinline__ void place(Geometry* g, int cx, int cy) {
+  g->t16x = static_cast<float>(cx);
+  g->t16y = static_cast<float>(cy);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  g->xb = cx * kCell + (warp & 1) * kBlockW;
+  g->yb = cy * kCell + (warp >> 1) * kBlockH;
+  g->x = g->xb + (lane & (kBlockW - 1));
+  g->y = g->yb + (lane >> 3);
+}
+
+// a quarter of a 32x32 tile (n_tx tiles a row): blockIdx.x = 4 tile + q
 __device__ __forceinline__ Geometry geometry(int n_tx) {
   Geometry g;
   g.tile = blockIdx.x >> 2;
   const int quarter = blockIdx.x & 3;
   g.tx = g.tile % n_tx;
   g.ty = g.tile / n_tx;
-  const int cx = 2 * g.tx + (quarter & 1);
-  const int cy = 2 * g.ty + (quarter >> 1);
-  g.t16x = static_cast<float>(cx);
-  g.t16y = static_cast<float>(cy);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  g.xb = cx * kCell + (warp & 1) * kBlockW;
-  g.yb = cy * kCell + (warp >> 1) * kBlockH;
-  g.x = g.xb + (lane & (kBlockW - 1));
-  g.y = g.yb + (lane >> 3);
+  place(&g, 2 * g.tx + (quarter & 1), 2 * g.ty + (quarter >> 1));
   return g;
 }
 
-// rect16 covers the quarter's cell (the per-pixel test of the 32x32
-// kernels, uniform here)
+// a 16x16 tile of the 16-px plan (n_tx tiles a row): blockIdx.x = tile
+__device__ __forceinline__ Geometry geometry16(int n_tx) {
+  Geometry g;
+  g.tile = blockIdx.x;
+  g.tx = g.tile % n_tx;
+  g.ty = g.tile / n_tx;
+  place(&g, g.tx, g.ty);
+  return g;
+}
+
+// rect16 covers the CTA's cell (the per-pixel test of the one-thread-per-
+// pixel kernels, uniform here)
 __device__ __forceinline__ bool rect_ok(const float4 f2, const float4 f3,
                                         float t16x, float t16y) {
   return (t16x >= f2.z) && (t16x < f3.x) && (t16y >= f2.w) &&
@@ -118,6 +180,23 @@ __device__ __forceinline__ void prepare(const float4 f0, const float4 f1,
   const float L = (finite && pd) ? logf(opa) - logf(kAlphaMin) : INFINITY;
   *p0 = f0;
   *p1 = make_float4(cc, 1.0f / ca, 1.0f / cc, L);
+}
+
+// prepare under mxu: L also carries kCullMxu * Mmag for the 32x32 tile
+// centred at (cx, cy) (see the note above), in this order
+__device__ __forceinline__ void prepare_mxu(const float4 f0, const float4 f1,
+                                            float cx, float cy, float4* p0,
+                                            float4* p1) {
+  prepare(f0, f1, p0, p1);
+  const float mxl = fabsf(f0.x - cx);
+  const float myl = fabsf(f0.y - cy);
+  const float ca = fabsf(f0.z), cb = fabsf(f0.w), cc = fabsf(f1.x);
+  const float quad = kHalfTileSq * ((0.5f * ca + cb) + 0.5f * cc);
+  const float lin =
+      kHalfTile * (((ca * mxl + cb * myl) + cb * mxl) + cc * myl);
+  const float cst =
+      0.5f * ((ca * mxl * mxl + 2.0f * cb * mxl * myl) + cc * myl * myl);
+  p1->w = p1->w + kCullMxu * ((quad + lin) + cst);
 }
 
 // the minimum of q over the edge dx = a, dy in [lo, hi] (inv_c = 1 / cc)
@@ -195,19 +274,28 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
-// The rows of a staged chunk whose rect16 covers the quarter's cell, in
-// pair order: warp 0 writes their indices to idx[0, m) and m to *count,
-// and thread r < kChunk (warps 0 and 1) prepares row r's block-test terms
-// in pre[r] if it is one of them. The caller synchronises the CTA before
+// The rows of a staged chunk whose rect16 covers the CTA's cell, in pair
+// order: warp 0 writes their indices to idx[0, m) and m to *count, and
+// thread r < kChunk (warps 0 and 1) prepares row r's block-test terms in
+// pre[r] if it is one of them (under kMxu with the margin of the 32x32
+// tile centred at (cx, cy)). The caller synchronises the CTA before
 // reading them.
+template <bool kMxu = false>
 __device__ __forceinline__ void compact_rect(const float4 (*rows)[4], int n,
                                              float t16x, float t16y,
                                              unsigned char* idx, int* count,
-                                             float4 (*pre)[2]) {
+                                             float4 (*pre)[2],
+                                             float cx = 0.0f,
+                                             float cy = 0.0f) {
   const int tid = threadIdx.x;
   if (tid < kChunk && tid < n &&
       rect_ok(rows[tid][2], rows[tid][3], t16x, t16y)) {
-    prepare(rows[tid][0], rows[tid][1], &pre[tid][0], &pre[tid][1]);
+    if constexpr (kMxu) {
+      prepare_mxu(rows[tid][0], rows[tid][1], cx, cy, &pre[tid][0],
+                  &pre[tid][1]);
+    } else {
+      prepare(rows[tid][0], rows[tid][1], &pre[tid][0], &pre[tid][1]);
+    }
   }
   if ((tid >> 5) != 0) return;
   const int lane = tid & 31;

@@ -28,7 +28,7 @@
 // 32x32 tile-walk (7.9% included on the s=1 polish plan), reduced every
 // pair any lane of a warp included with ten butterflies, and put all
 // 1024 threads through a barrier every 32 pairs for a 40 KB table.
-// What the design does about it (subtile_cull.cuh):
+// What the design does about it (subtile_cull.cuh, subtile_bwd.cuh):
 // - one CTA of 256 threads per 16x16 quarter (one rect16 cell: the rect
 //   test runs once per staged pair, ballot + prefix compaction), each
 //   warp an 8x4 block of pixels that walks, in pair order, only the pairs
@@ -61,6 +61,7 @@
 #include <stdint.h>
 
 #include "subtile_cull.cuh"
+#include "subtile_bwd.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -68,49 +69,8 @@ namespace {
 
 using namespace subtile;
 
-constexpr int kRows = 10;  // gradient columns per pair
 constexpr int kFeat = 16;  // floats per pair row
 constexpr int kQuarters = 4;
-
-// The warp sums of the ten values v[0..9] in 12 shuffles instead of ten
-// butterflies' 50: at each of the five levels a lane keeps half of its
-// values and adds its partner's copies of them (the halves 5/5, 3/3 with
-// one zero slot, 2/2 with one, 1/1, then the last value whole). Returns
-// the sum this lane ends with and sets *col to its column, or -1 where
-// the lane holds a zero slot; lanes l and l ^ 1 hold the same column.
-// The order of the additions is fixed: the result is deterministic.
-__device__ __forceinline__ float warp_sum10(const float v[kRows], int lane,
-                                            int* col) {
-  const bool h1 = lane & 16, h2 = lane & 8, h3 = lane & 4, h4 = lane & 2;
-  float k[5];  // columns (h1 ? 5 : 0) + j
-#pragma unroll
-  for (int j = 0; j < 5; ++j) {
-    const float send = h1 ? v[j] : v[j + 5];
-    k[j] = (h1 ? v[j + 5] : v[j]) + __shfl_xor_sync(kFull, send, 16);
-  }
-  float m[3];  // k slots (h2 ? 3 : 0) + j, slot 5 zero
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float hi = j + 3 < 5 ? k[j + 3] : 0.0f;
-    const float send = h2 ? k[j] : hi;
-    m[j] = (h2 ? hi : k[j]) + __shfl_xor_sync(kFull, send, 8);
-  }
-  float n[2];  // m slots (h3 ? 2 : 0) + j, slot 3 zero
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const float hi = j + 2 < 3 ? m[j + 2] : 0.0f;
-    const float send = h3 ? m[j] : hi;
-    n[j] = (h3 ? hi : m[j]) + __shfl_xor_sync(kFull, send, 4);
-  }
-  // n slot h4
-  float p = (h4 ? n[1] : n[0]) +
-            __shfl_xor_sync(kFull, h4 ? n[0] : n[1], 2);
-  p += __shfl_xor_sync(kFull, p, 1);
-  const int m_slot = (h3 ? 2 : 0) + (h4 ? 1 : 0);
-  const int k_slot = (h2 ? 3 : 0) + m_slot;
-  *col = (m_slot < 3 && k_slot < 5) ? (h1 ? 5 : 0) + k_slot : -1;
-  return p;
-}
 
 // the cluster barrier in two halves (cluster.sync() is both)
 __device__ __forceinline__ void cluster_arrive() {
@@ -178,18 +138,8 @@ composite32_bwd_subtile(const float4* __restrict__ feat,   // (B_al, 4) x float4
   const unsigned rank = cluster.block_rank();
 
   // this pixel's forward sums and cotangents (zero outside the image)
-  float dCr = 0.0f, dCg = 0.0f, dCb = 0.0f, dD = 0.0f, c0 = 0.0f;
-  if (inside) {
-    const size_t hw = static_cast<size_t>(H) * W;
-    const size_t p = static_cast<size_t>(g.y) * W + g.x;
-    dCr = d_color[p];
-    dCg = d_color[hw + p];
-    dCb = d_color[2 * hw + p];
-    dD = d_depth[p];
-    const float stot = ((dCr * color[p] + dCg * color[hw + p])
-                        + dCb * color[2 * hw + p]) + dD * depth[p];
-    c0 = d_T[p] * final_T[p] + stot;
-  }
+  const PixelCot cot = pixel_cot(inside, g.x, g.y, W, H, color, depth,
+                                 final_T, d_color, d_depth, d_T);
 
   const int2 rg = ranges[g.tile];
   const int n_chunks = (rg.y - rg.x + kChunk - 1) / kChunk;
@@ -234,55 +184,8 @@ composite32_bwd_subtile(const float4* __restrict__ feat,   // (B_al, 4) x float4
           const int r = s_idx[h * 32 + __ffs(bits) - 1];
           bits &= bits - 1u;
           float v[kRows];
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) v[j] = 0.0f;
-          bool inc = false;
-          if (!done) {
-            const float4 f0 = rows[r][0];  // mx, my, ca, cb
-            const float4 f1 = rows[r][1];  // cc, opa, r, g
-            const float4 f2 = rows[r][2];  // b, depth, rect x0, rect y0
-            const float dx = f0.x - px;
-            const float dy = f0.y - py;
-            const float power =
-                -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
-            if (power <= 0.0f) {
-              const float a_un = f1.y * expf(power);
-              const float alpha = fminf(kAlphaMax, a_un);
-              if (alpha >= kAlphaMin) {
-                const float T_incl = T * (1.0f - alpha);
-                if (T_incl < kTEps) {
-                  done = true;  // the triggering pair is dropped
-                } else {
-                  inc = true;
-                  const float w = alpha * T;
-                  const float A =
-                      ((f1.z * dCr + f1.w * dCg) + f2.x * dCb) + f2.y * dD;
-                  pA = pA + w * A;
-                  const float inv_om = 1.0f / fmaxf(1.0f - alpha, 1e-6f);
-                  const float dLda = A * T - inv_om * (c0 - pA);
-                  const float G = a_un / fmaxf(f1.y, 1e-12f);
-                  const float dLdG = f1.y * dLda;
-                  const float gdx = G * dx;
-                  const float gdy = G * dy;
-                  const float dG_ddx = -gdx * f0.z - gdy * f0.w;
-                  const float dG_ddy = -gdy * f1.x - gdx * f0.w;
-                  v[0] = dLdG * dG_ddx;
-                  v[1] = dLdG * dG_ddy;
-                  v[2] = dLdG * (-0.5f * gdx * dx);
-                  v[3] = dLdG * (-gdx * dy);
-                  v[4] = dLdG * (-0.5f * gdy * dy);
-                  v[5] = G * dLda;
-                  v[6] = w * dCr;
-                  v[7] = w * dCg;
-                  v[8] = w * dCb;
-                  v[9] = w * dD;
-                  T = T_incl;
-                }
-              }
-            }
-          }
-          if (__any_sync(kFull, inc)) {
-            int col;
+          const bool inc = bwd_cell(rows[r], px, py, cot, &T, &pA, &done, v);
+          if (__any_sync(kFull, inc)) {            int col;
             const float sum = warp_sum10(v, lane, &col);
             if (!(lane & 1) && col >= 0) s_part[warp][r][col] = sum;
             if (r < 32) {

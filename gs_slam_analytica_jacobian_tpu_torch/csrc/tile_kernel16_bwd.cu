@@ -39,6 +39,12 @@
 // and the grid has 4x the CTAs. The CTA leaves when every pixel is done
 // (__syncthreads_count); rows it never reaches keep the zero the wrapper
 // allocated. Built with -fmad=false, like the forward.
+//
+// tile16_bwd_subtile.cu replaced this design as B4 (C entry
+// composite16_bwd: per-warp conservative culling, asynchronous staging,
+// the 12-shuffle reduce-scatter). This one stays compiled under the C
+// entry composite16_bwd_walk, a yardstick that only chip_smoke.py times
+// beside it on the same plans.
 
 #include <cuda_runtime.h>
 
@@ -195,17 +201,18 @@ composite16_bwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
 
 }  // namespace
 
-// C entry, loaded with ctypes; the signature of composite32_bwd. feat:
-// (B_al, 16) f32, 16-byte aligned; ranges: (n_tiles, 2) int32 over the
-// n_tx-wide 16-px grid; color, d_color: (3, H, W) f32; depth, final_T,
+// C entry, loaded with ctypes: composite16_bwd_walk (this design, the
+// yardstick), the signature of composite32_bwd. feat: (B_al, 16) f32,
+// 16-byte aligned; ranges: (n_tiles, 2) int32 over the n_tx-wide 16-px
+// grid; color, d_color: (3, H, W) f32; depth, final_T,
 // d_depth, d_T: (H, W) f32; dfeat: (B_al, 16) f32, zero-filled by the
 // caller. Launches on ``stream`` and returns cudaGetLastError().
-extern "C" int composite16_bwd(const void* feat, const void* ranges,
-                               const void* color, const void* depth,
-                               const void* final_T, const void* d_color,
-                               const void* d_depth, const void* d_T,
-                               void* dfeat, int n_tiles, int n_tx, int W,
-                               int H, void* stream) {
+extern "C" int composite16_bwd_walk(const void* feat, const void* ranges,
+                                    const void* color, const void* depth,
+                                    const void* final_T, const void* d_color,
+                                    const void* d_depth, const void* d_T,
+                                    void* dfeat, int n_tiles, int n_tx,
+                                    int W, int H, void* stream) {
   if (n_tiles <= 0) return 0;
   composite16_bwd_kernel<<<n_tiles, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(

@@ -44,8 +44,11 @@
 // than the FP32 rate on the CUDA cores (nothing here packs bf16x2), and
 // the conversions add operations, so it is not expected to be faster.
 //
-// The mxu variant (C entry composite32_fwd_mxu, with or without n_touched)
-// replaces the same two call sites with mxu=True (make_forward_kernel
+// The mxu variant (C entry composite32_fwd_mxu_tile1024, with or without
+// n_touched; this design's mxu body, which the C entry composite32_fwd_mxu
+// of tile32_fwd_subtile_mxu.cu replaced, kept as a yardstick that only
+// chip_smoke.py times on the same plans) computes the function of the
+// same two call sites with mxu=True (make_forward_kernel
 // :225-237, :279-289). The falloff comes from the tensor cores
 // (mxu_falloff.cuh): per 128-pair chunk, 128 threads write the chunk's G8
 // rows (4 KB) to shared memory; each warp multiplies them, 16 pairs at a
@@ -295,9 +298,10 @@ mxu_power_tile_kernel(const float4* __restrict__ feat,  // (n, 4) x float4
 // design's f32 body, which the C entry composite32_fwd of
 // tile32_fwd_subtile.cu replaced; kept as a yardstick that only
 // chip_smoke.py times on the same plans), composite32_fwd_bf16 (the
-// bfloat16 falloff) and composite32_fwd_mxu (the
-// tensor-core falloff and the log-space transmittance; under mxu the
-// reference's bf16 flag has no effect on the forward). feat: (B_al, 16)
+// bfloat16 falloff) and composite32_fwd_mxu_tile1024 (the tensor-core
+// falloff and the log-space transmittance, likewise a yardstick since
+// tile32_fwd_subtile_mxu.cu; under mxu the reference's bf16 flag has no
+// effect on the forward). feat: (B_al, 16)
 // f32, 16-byte aligned; ranges: (n_tiles, 2) int32; out: (5, H, W) f32;
 // ntouch: (B_al,) f32, zero-filled by the caller (pairs a tile never
 // reaches must read 0). Launch on ``stream`` and return
@@ -319,10 +323,12 @@ extern "C" int composite32_fwd_bf16(const void* feat, const void* ranges,
                              with_ntouch, nt_weight, stream);
 }
 
-extern "C" int composite32_fwd_mxu(const void* feat, const void* ranges,
-                                   void* out, void* ntouch, int n_tiles,
-                                   int n_tx, int W, int H, int with_ntouch,
-                                   int nt_weight, void* stream) {
+extern "C" int composite32_fwd_mxu_tile1024(const void* feat,
+                                            const void* ranges, void* out,
+                                            void* ntouch, int n_tiles,
+                                            int n_tx, int W, int H,
+                                            int with_ntouch, int nt_weight,
+                                            void* stream) {
   return launch<false, true>(feat, ranges, out, ntouch, n_tiles, n_tx, W, H,
                              with_ntouch, nt_weight, stream);
 }

@@ -32,8 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # kernel library name -> (source file, {C entry: argtypes}); a source may
-# export several entries (the bf16 and mxu variants, and the f32 body of
-# the one-CTA-per-tile design as a yardstick, beside each other)
+# export several entries (the bf16 and mxu variants, and the bodies of the
+# one-CTA-per-tile designs kept as yardsticks, beside each other)
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _FWD_ARGS = [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
@@ -42,12 +42,14 @@ _ABL16_ARGS = [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
 LIBRARIES = {
     "tile32_fwd_subtile": ("tile32_fwd_subtile.cu",
                            {"composite32_fwd": _FWD_ARGS}),
+    "tile32_fwd_subtile_mxu": ("tile32_fwd_subtile_mxu.cu",
+                               {"composite32_fwd_mxu": _FWD_ARGS}),
     "tile32_bwd_subtile": ("tile32_bwd_subtile.cu",
                            {"composite32_bwd": _BWD_ARGS}),
     "tile_kernel2_fwd": ("tile_kernel2_fwd.cu",
                          {"composite32_fwd_tile1024": _FWD_ARGS,
                           "composite32_fwd_bf16": _FWD_ARGS,
-                          "composite32_fwd_mxu": _FWD_ARGS,
+                          "composite32_fwd_mxu_tile1024": _FWD_ARGS,
                           "mxu_power_tile": [_VP, _INT, _INT, _INT, _VP,
                                              _VP]}),
     "tile_kernel2_bwd": ("tile_kernel2_bwd.cu",
@@ -57,8 +59,10 @@ LIBRARIES = {
                           "composite32_bwd_bf16_mxu": _BWD_ARGS}),
     "tile_kernel16_fwd": ("tile_kernel16_fwd.cu",
                           {"composite16_fwd": _FWD_ARGS}),
+    "tile16_bwd_subtile": ("tile16_bwd_subtile.cu",
+                           {"composite16_bwd": _BWD_ARGS}),
     "tile_kernel16_bwd": ("tile_kernel16_bwd.cu",
-                          {"composite16_bwd": _BWD_ARGS}),
+                          {"composite16_bwd_walk": _BWD_ARGS}),
     "abl16": ("abl16.cu", {f"abl16_{v}": _ABL16_ARGS for v in (
         "full", "noexp", "noscan", "nomxu", "notrans", "minimal", "dyn",
         "prodbody")}),

@@ -58,9 +58,14 @@ linear transmittance and the direct dx, dy of its gradient products. In
 the forward ``mxu`` takes precedence over ``bf16`` (the reference's
 ``_chunk_terms``); the backward under both runs the MXU falloff with the
 bfloat16 gradient products. The mxu kernels are the C entries
-``composite32_fwd_mxu``, ``composite32_bwd_mxu`` and
-``composite32_bwd_bf16_mxu``, counted in ``launches_mxu`` (the backward
-under both flags in ``launches_bf16_mxu``). Their plain versions evaluate
+``composite32_fwd_mxu`` (``csrc/tile32_fwd_subtile_mxu.cu``: the f32
+forward's sub-tile layout, the block test with a margin for the tensor
+cores' rounding, ``block_keep_plain(..., centre=)``),
+``composite32_bwd_mxu`` and ``composite32_bwd_bf16_mxu``, counted in
+``launches_mxu`` (the backward under both flags in
+``launches_bf16_mxu``); the one-CTA-per-tile mxu forward the sub-tile one
+replaced stays as the yardstick ``composite32_fwd_mxu_tile1024``. Their
+plain versions evaluate
 the power with ``torch.matmul`` at float32 matmul precision "highest"
 (never TF32; they raise otherwise), as the reference's dot runs at
 ``Precision.HIGHEST``.
@@ -110,6 +115,11 @@ SUB_CHUNK = 64        # pair rows a quarter stages per step
 CULL_REL = 2.0 ** -18
 CULL_ABS = 2.0 ** -16
 PD_REL = 2.0 ** -16
+# the block test's margin under mxu: CULL_MXU times a bound of the
+# tile-local expansion's terms (|pxl|, |pyl| <= HALF_TILE in a 32x32 tile)
+CULL_MXU = 2.0 ** -16
+HALF_TILE = (TPX - 1) / 2.0
+HALF_TILE_SQ = HALF_TILE * HALF_TILE
 
 
 def grid_dims(width: int, height: int):
@@ -207,8 +217,8 @@ def _tile_centres(sel: torch.Tensor, n_tx: int):
     return tx[:, None, None], ty[:, None, None]
 
 
-def _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight
-                    ) -> Tuple[Composite2Out, torch.Tensor, torch.Tensor]:
+def _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight,
+                    cull: bool = False, done_at: bool = False) -> tuple:
     """``plain_walk`` under ``mxu`` (32x32 tiles): the reference's MXU
     forward chunk by chunk of K = 128 pair rows. Per chunk the falloff is
     ``_mxu_power`` and the transmittance the log-space prefix
@@ -216,7 +226,10 @@ def _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight
     pair is not live, T_excl = T_incl / (1 - alpha_eff); a pixel's done
     flag and T move at the chunk's end (T = min(T, T_incl over included
     pairs)), as in the reference, where T_incl is monotone along the chunk
-    so everything behind a terminating pair is dropped too."""
+    so everything behind a terminating pair is dropped too. ``cull`` and
+    ``done_at`` as in ``plain_walk``, the block test with the mxu margin
+    (``block_keep_plain(..., centre=)``); a pixel's stop offset is its
+    first terminating pair's."""
     dev = feat.device
     f32 = torch.float32
     n_tiles = n_tx * n_ty
@@ -225,6 +238,9 @@ def _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight
     n_pairs = (ranges[:, 1] - ranges[:, 0]).long()
 
     px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev, TPX)
+    if cull:
+        xb, yb = _pixel_blocks(n_tx, n_ty, dev)
+    stop_at = torch.where(pix_in, 1 << 62, -1)
     T = torch.ones(n_tiles, P, dtype=f32, device=dev)
     done = ~pix_in
     acc = torch.zeros(n_tiles, 4, P, dtype=f32, device=dev)
@@ -251,6 +267,9 @@ def _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight
                    & (t16y_s >= f[..., 11:12]) & (t16y_s < f[..., 13:14]))
         ok = (row_ok[..., None] & rect_ok & (power <= 0.0)
               & (alpha >= ALPHA_MIN))                          # (S, K, P)
+        if cull:
+            ok &= block_keep_plain(f[..., None, :], xb[sel], yb[sel],
+                                   centre=(cx, cy))
         done_s = done[sel]
         live = ok & ~done_s[:, None]
         alpha_eff = torch.where(live, alpha, torch.zeros_like(alpha))
@@ -270,17 +289,37 @@ def _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch, nt_weight
                                      - stop.int()) > 0)
         walked[sel] += (row_ok & ~before.all(dim=2)).sum(dim=1)
         passed += (ok & ~before).sum()
+        first = c * K + torch.argmax(stop.to(torch.uint8), dim=1)
+        stop_at[sel] = torch.where(stop.any(dim=1), first, stop_at[sel])
         done[sel] = done_s | stop.any(dim=1)
         if with_ntouch:
             cond = inc & ((w >= ALPHA_MIN) if nt_weight else (T_incl > 0.5))
             nt = (cond & pix_in[sel][:, None]).sum(dim=2).to(f32)
             ntouch[idx[row_ok]] = nt[row_ok]
 
-    return _assemble(acc, T, ntouch, n_tx, n_ty, W, H, TPX), walked, passed
+    out = _assemble(acc, T, ntouch, n_tx, n_ty, W, H, TPX)
+    return (out, walked, passed, stop_at) if done_at else \
+        (out, walked, passed)
 
 
-def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor
+def mxu_margin_plain(f: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor
                      ) -> torch.Tensor:
+    """The block test's extra margin under mxu (``csrc/subtile_cull.cuh``
+    ``prepare_mxu``, the same f32 operations in the same order): CULL_MXU
+    times Mmag, a bound of every term of the tile-local expansion (and of
+    every product that forms G8) of pair rows ``f`` (..., 16) over the
+    pixels of the 32x32 tile centred at (cx, cy)."""
+    mxl = torch.abs(f[..., 0] - cx)
+    myl = torch.abs(f[..., 1] - cy)
+    ca, cb, cc = (torch.abs(f[..., i]) for i in (2, 3, 4))
+    quad = HALF_TILE_SQ * ((0.5 * ca + cb) + 0.5 * cc)
+    lin = HALF_TILE * (((ca * mxl + cb * myl) + cb * mxl) + cc * myl)
+    cst = 0.5 * ((ca * mxl * mxl + 2.0 * cb * mxl * myl) + cc * myl * myl)
+    return CULL_MXU * ((quad + lin) + cst)
+
+
+def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
+                     centre=None) -> torch.Tensor:
     """The sub-tile kernels' conservative block test
     (``csrc/subtile_cull.cuh``: ``prepare`` then ``block_keep``, the same
     f32 operations in the same order): False only where pair row ``f``
@@ -295,7 +334,11 @@ def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor
     the rounding of the kernel's power, of this test, of expf and logf
     (the source's note gives the argument). Rows with a non-finite mean,
     conic or opacity and conics that are not clearly positive definite
-    get L = +inf and are kept."""
+    get L = +inf and are kept. Under mxu, ``centre`` = (cx, cy) of the
+    32x32 tile (broadcast against ``f[..., 0]``) and L carries
+    ``mxu_margin_plain`` too: the tensor-core power and the plain
+    version's f32 matmul round relative to the tile-local expansion's
+    terms."""
     mx, my, ca, cb, cc, opa = (f[..., i] for i in range(6))
     finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ca)
               & torch.isfinite(cb) & torch.isfinite(cc)
@@ -305,6 +348,8 @@ def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor
     log_min = torch.log(torch.tensor(ALPHA_MIN, dtype=f.dtype))
     L = torch.where(finite & pd, torch.log(opa) - log_min,
                     torch.full_like(opa, float("inf")))
+    if centre is not None:
+        L = L + mxu_margin_plain(f, *centre)
     inv_ca = 1.0 / ca
     inv_cc = 1.0 / cc
     xlo = mx - (xb + float(BLOCK_W - 1))
@@ -328,14 +373,14 @@ def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor
     return ~(0.5 * qmin > L + CULL_REL * smax + CULL_ABS)
 
 
-def _pixel_blocks(n_tx: int, n_ty: int, dev):
-    """(xb, yb) f32, (n_tiles, 1, P): the top-left pixel of the 8x4 block
-    each pixel of each 32x32 tile belongs to."""
-    q = torch.arange(P, device=dev)
+def _pixel_blocks(n_tx: int, n_ty: int, dev, tile: int = TPX):
+    """(xb, yb) f32, (n_tiles, 1, tile^2): the top-left pixel of the 8x4
+    block each pixel of each tile of edge ``tile`` belongs to."""
+    q = torch.arange(tile * tile, device=dev)
     t_ar = torch.arange(n_tx * n_ty, device=dev)
-    xb = (t_ar % n_tx)[:, None] * TPX + (q % TPX // BLOCK_W * BLOCK_W)[None]
-    yb = (t_ar // n_tx)[:, None] * TPY + (q // TPX // BLOCK_H
-                                          * BLOCK_H)[None]
+    xb = (t_ar % n_tx)[:, None] * tile + (q % tile // BLOCK_W * BLOCK_W)[None]
+    yb = (t_ar // n_tx)[:, None] * tile + (q // tile // BLOCK_H
+                                           * BLOCK_H)[None]
     return (xb.to(torch.float32)[:, None], yb.to(torch.float32)[:, None])
 
 
@@ -361,20 +406,21 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
     body instead (``_plain_walk_mxu``), which takes precedence over
     ``bf16``.
 
-    ``cull`` (32x32, f32 only) skips every cell whose (pair, 8x4 block)
-    ``block_keep_plain`` drops, as the sub-tile kernel does; the outputs
+    ``cull`` (f32 at either tile size, and mxu) skips every cell whose
+    (pair, 8x4 block) ``block_keep_plain`` drops, as the sub-tile kernels
+    do (under mxu with the margin of the tensor-core falloff); the outputs
     and the passed cells are the same as without it. ``done_at`` appends
-    a fourth result, (n_tiles, P) int64: for each pixel the offset in its
-    tile's run of the pair at which it was done, -1 outside the image and
-    2^62 where it never was (``subtile_cells`` reads it)."""
-    if (cull or done_at) and (mxu or bf16 or tile != TPX):
-        raise ValueError("cull and done_at are options of the f32 32x32 "
-                         "walk only")
+    a fourth result, (n_tiles, tile^2) int64: for each pixel the offset in
+    its tile's run of the pair at which it was done, -1 outside the image
+    and 2^62 where it never was (``subtile_cells`` reads it)."""
+    if (cull or done_at) and bf16 and not mxu:
+        raise ValueError("cull and done_at are options of the f32 and mxu "
+                         "walks only")
     if mxu:
         if tile != TPX:
             raise ValueError("mxu is a body of the 32x32 kernels only")
         return _plain_walk_mxu(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
-                               nt_weight)
+                               nt_weight, cull=cull, done_at=done_at)
     dev = feat.device
     f32 = torch.float32
     chunk = PLAIN_CHUNK
@@ -386,7 +432,7 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
     px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev, tile)
     n_pix = tile * tile
     if cull:
-        xb, yb = _pixel_blocks(n_tx, n_ty, dev)
+        xb, yb = _pixel_blocks(n_tx, n_ty, dev, tile)
     never = 1 << 62
     stop_at = torch.where(pix_in, never, -1)
 
@@ -456,29 +502,33 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
 
 
 def subtile_cells(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
-                  n_ty: int, stop_at: torch.Tensor, batch: int = 1 << 17
+                  n_ty: int, stop_at: torch.Tensor, tile: int = TPX,
+                  mxu: bool = False, batch: int = 1 << 17
                   ) -> Tuple[int, int]:
-    """The (pair, pixel) cells the f32 sub-tile kernels evaluate on a
-    32x32 plan, from ``plain_walk(..., done_at=True)``'s ``stop_at``:
-    (after the rect16 compaction and the block test, after the rect16
-    compaction alone). A warp's 8x4 block walks chunk c of SUB_CHUNK pair
-    rows of its tile's run if one of its pixels is not done at the
-    chunk's start (its stop offset >= c * SUB_CHUNK), and then evaluates
-    32 cells for each pair of the chunk that covers its quarter's rect16
-    cell and that ``block_keep_plain`` keeps. Counted in batches of
-    ``batch`` pair slots."""
+    """The (pair, pixel) cells the sub-tile kernels evaluate on a plan of
+    ``tile``-px tiles (32: B1/B1', and under ``mxu`` B1-mxu/B1'-mxu, whose
+    block test carries the mxu margin; 16: B4), from ``plain_walk(...,
+    done_at=True)``'s ``stop_at``: (after the rect16 compaction and the
+    block test, after the rect16 compaction alone). A warp's 8x4 block
+    walks chunk c of SUB_CHUNK pair rows of its tile's run if one of its
+    pixels is not done at the chunk's start (its stop offset >= c *
+    SUB_CHUNK), and then evaluates 32 cells for each pair of the chunk that
+    covers its 16-px cell and that ``block_keep_plain`` keeps. Counted in
+    batches of ``batch`` pair slots."""
     dev = feat.device
     n_tiles = n_tx * n_ty
     start = ranges[:, 0].long()
     n_pairs = (ranges[:, 1] - ranges[:, 0]).long()
-    # per tile and block (32 blocks of 8x4 pixels), the last stop offset
-    q = torch.arange(P, device=dev)
-    blk = (q // TPX // BLOCK_H) * (TPX // BLOCK_W) + q % TPX // BLOCK_W
-    last = torch.full((n_tiles, P // 32), -1, dtype=torch.long, device=dev)
+    # per tile and 8x4 block, the last stop offset
+    n_bx = tile // BLOCK_W
+    n_blk = n_bx * (tile // BLOCK_H)
+    q = torch.arange(tile * tile, device=dev)
+    blk = (q // tile // BLOCK_H) * n_bx + q % tile // BLOCK_W
+    last = torch.full((n_tiles, n_blk), -1, dtype=torch.long, device=dev)
     last.scatter_reduce_(1, blk[None].expand(n_tiles, -1), stop_at, "amax")
-    b_ar = torch.arange(P // 32, device=dev)
-    bx = (b_ar % (TPX // BLOCK_W)) * BLOCK_W                      # (32,)
-    by = (b_ar // (TPX // BLOCK_W)) * BLOCK_H
+    b_ar = torch.arange(n_blk, device=dev)
+    bx = (b_ar % n_bx) * BLOCK_W                                 # (n_blk,)
+    by = (b_ar // n_bx) * BLOCK_H
     tile_of = torch.repeat_interleave(torch.arange(n_tiles, device=dev),
                                       n_pairs)
     first = torch.cumsum(n_pairs, 0) - n_pairs
@@ -487,16 +537,18 @@ def subtile_cells(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
         t = tile_of[lo:lo + batch]
         j = torch.arange(lo, lo + t.numel(), device=dev) - first[t]
         f = feat[start[t] + j]                                  # (S, 16)
-        x0 = (t % n_tx)[:, None] * TPX + bx[None]               # (S, 32)
-        y0 = (t // n_tx)[:, None] * TPY + by[None]
+        x0 = (t % n_tx)[:, None] * tile + bx[None]              # (S, n_blk)
+        y0 = (t // n_tx)[:, None] * tile + by[None]
         t16x = (x0 // CELL).to(torch.float32)
         t16y = (y0 // CELL).to(torch.float32)
         rect = ((t16x >= f[:, 10:11]) & (t16x < f[:, 12:13])
                 & (t16y >= f[:, 11:12]) & (t16y < f[:, 13:14]))
         walks = (j // SUB_CHUNK * SUB_CHUNK)[:, None] <= last[t]
         live = rect & walks
+        centre = (tuple(c[:, :, 0] for c in _tile_centres(t, n_tx))
+                  if mxu else None)
         keep = block_keep_plain(f[:, None, :], x0.to(torch.float32),
-                                y0.to(torch.float32))
+                                y0.to(torch.float32), centre=centre)
         rected += int(live.sum())
         kept += int((live & keep).sum())
     return 32 * kept, 32 * rected
@@ -559,9 +611,10 @@ def _variant(bf16: bool, mxu: bool) -> str:
 
 
 def _fwd_lib(suffix: str) -> str:
-    """The library of a forward variant: the f32 sub-tile kernel, or the
-    one-CTA-per-tile bf16 / mxu bodies."""
-    return "tile_kernel2_fwd" if suffix else "tile32_fwd_subtile"
+    """The library of a forward variant: the f32 and mxu sub-tile kernels,
+    or the one-CTA-per-tile bf16 body."""
+    return {"": "tile32_fwd_subtile", "_mxu": "tile32_fwd_subtile_mxu",
+            "_bf16": "tile_kernel2_fwd"}[suffix]
 
 
 def _count(wrapper, suffix: str):
@@ -635,6 +688,29 @@ def composite32_fwd_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
 
 
 composite32_fwd_tile1024.launches = 0
+
+
+def composite32_fwd_mxu_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
+                                 n_tx: int, n_ty: int, W: int, H: int,
+                                 with_ntouch: bool = False,
+                                 nt_weight: bool = False) -> Composite2Out:
+    """The mxu forward of the one-CTA-per-tile design that the sub-tile
+    mxu kernel replaced (``csrc/tile_kernel2_fwd.cu``, C entry
+    ``composite32_fwd_mxu_tile1024``): a yardstick timed beside
+    ``composite32_fwd(mxu=True)`` on the same plans, launched by no
+    path."""
+    _check(feat, ranges, n_tx, n_ty)
+    if feat.device.type == "cpu":
+        return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
+                                 with_ntouch=with_ntouch, nt_weight=nt_weight,
+                                 mxu=True)
+    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
+                     with_ntouch, nt_weight, "composite32_fwd_mxu_tile1024")
+    composite32_fwd_mxu_tile1024.launches += 1
+    return out
+
+
+composite32_fwd_mxu_tile1024.launches = 0
 
 
 def mxu_power_tile(feat: torch.Tensor, tx: int, ty: int) -> torch.Tensor:
@@ -721,13 +797,14 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
     dy and dL/dG rounded to bfloat16, each widened before its sum. Under
     ``mxu`` (32x32 only) the falloff is ``_mxu_power`` and a_un = opa
     exp(power) in f32; the walk, the linear transmittance and the products
-    (bfloat16 ones too under ``bf16``) stay. ``cull`` (32x32, f32 only)
-    skips every cell whose (pair, 8x4 block) ``block_keep_plain`` drops,
-    as the sub-tile kernel does; the rows are the same as without it."""
+    (bfloat16 ones too under ``bf16``) stay. ``cull`` (f32, either tile
+    size) skips every cell whose (pair, 8x4 block) ``block_keep_plain``
+    drops, as the sub-tile kernels do; the rows are the same as without
+    it."""
     if mxu and tile != TPX:
         raise ValueError("mxu is a body of the 32x32 kernels only")
-    if cull and (mxu or bf16 or tile != TPX):
-        raise ValueError("cull is an option of the f32 32x32 walk only")
+    if cull and (mxu or bf16):
+        raise ValueError("cull is an option of the f32 walk only")
     dev = feat.device
     f32 = torch.float32
     chunk = PLAIN_CHUNK
@@ -739,7 +816,7 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
     px, py, pix_in, t16x, t16y = _tile_pixels(n_tx, n_ty, W, H, dev, tile)
     n_pix = tile * tile
     if cull:
-        xb, yb = _pixel_blocks(n_tx, n_ty, dev)
+        xb, yb = _pixel_blocks(n_tx, n_ty, dev, tile)
 
     fwd = _to_tiles(torch.cat([color_sum, depth_sum[None], final_T[None]]),
                     n_tx, n_ty, tile)                          # (T, 5, P)

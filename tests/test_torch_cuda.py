@@ -26,7 +26,7 @@ from gs_slam_analytica_jacobian_tpu_torch.ops.renderer_tiled import (
 from gs_slam_analytica_jacobian_tpu_torch.scenes import make_room_map
 from gs_slam_analytica_jacobian_tpu_torch.slam.render_api import render
 
-from chip_smoke import resort_full_depth_key
+from chip_smoke import mxu_gate_failure, resort_full_depth_key
 
 pytestmark = pytest.mark.cuda
 
@@ -428,35 +428,42 @@ def test_abl16_kernel_matches_plain(cuda, variant):
         assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
 
 
-def _subtile_plan(cuda):
-    """The sub-tile kernels' hard cases on one plan: a ragged 333x197 view
-    of the room (edge tiles and quarters partly or wholly outside the
-    image), runs over several 64-row chunks, one tile whose run is empty,
-    and, in the longest run, rows the block test must keep and the walk
-    must skip or include as the plain version does: a non-PD conic, a NaN
-    mean, and means on a pixel with opacity at 1/255 and one ulp below."""
+def _subtile_plan(cuda, tile16=False, at_threshold=True):
+    """The sub-tile kernels' hard cases on one plan (32-px, or the 16-px
+    plan under ``tile16``; n_tx x n_ty is then the 16-px grid): a ragged
+    333x197 view of the room (edge tiles and quarters partly or wholly
+    outside the image), runs over several 64-row chunks, one tile whose
+    run is empty, and, in the longest run, rows the block test must keep
+    and the walk must skip or include as the plain version does: a non-PD
+    conic, a NaN mean, and (``at_threshold``) means on a pixel with
+    opacity at 1/255 and one ulp below."""
     W, H = 333, 197
     gm, cam = _room(cuda, n=30000, W=W, H=H)
     prep = gmath.preprocess(
         gm.xyz, gm.get_cov6(), gm.get_opacity(), gm.get_features(), 0,
         cam.w2c(), cam.projection(), torch.zeros(6, device=cuda), cam.fx,
         cam.fy, W, H, cam.tanfovx, cam.tanfovy, low_pass=0.3)
-    plan = make_plan(prep, W, H, 1 << 19, radius_scale=1.1, radius_pad=2.0)
+    plan = make_plan(prep, W, H, 1 << 19, radius_scale=1.1, radius_pad=2.0,
+                     tile16=tile16)
     assert int(plan.overflow) == 0
     feat = pair_gather(pack_table(prep), plan).detach().contiguous().clone()
     ranges = plan.ranges.clone()
-    n_tx, n_ty = tk.grid_dims(W, H)
+    if tile16:
+        n_gx, n_gy = tk16.grid_dims16(W, H)
+        n_tx, n_ty, edge = 2 * n_gx, 2 * n_gy, 16
+    else:
+        (n_tx, n_ty), edge = tk.grid_dims(W, H), 32
     runs = (ranges[:, 1] - ranges[:, 0]).long()
     assert int(runs.max()) > 3 * tk.SUB_CHUNK
     t = int(torch.argmax(runs))
     a = int(ranges[t, 0])
-    x0, y0 = (t % n_tx) * 32 + 5.0, (t // n_tx) * 32 + 9.0
+    x0, y0 = (t % n_tx) * edge + 5.0, (t // n_tx) * edge + 9.0
     alpha_min = torch.tensor(tk.ALPHA_MIN, dtype=torch.float32)
     feat[a + 3, 3] = 2.0 * torch.sqrt(feat[a + 3, 2] * feat[a + 3, 4])
     feat[a + 70, 0] = float("nan")
-    for r, opa in ((a + 5, alpha_min),
-                   (a + 130, torch.nextafter(alpha_min,
-                                             torch.tensor(0.0)))):
+    below = torch.nextafter(alpha_min, torch.tensor(0.0))
+    for r, opa in ((a + 5, alpha_min), (a + 130, below)) if at_threshold \
+            else ():
         feat[r, 0:6] = torch.tensor([x0, y0, 0.3, 0.05, 0.2, float(opa)])
         feat[r, 10:14] = torch.tensor([0.0, 0.0, 1e4, 1e4])
     empty = next(i for i in range(n_tx * n_ty)
@@ -520,3 +527,78 @@ def test_subtile_backward_matches_plain_on_hard_plan(cuda):
             assert float((rows[:, col] - ref[:, col]).abs().max()) \
                 <= 1e-5 * scale, col
     assert torch.equal(got.any(dim=1), ref.any(dim=1))
+
+
+def test_subtile_backward16_matches_plain_on_hard_plan(cuda):
+    """B4 (the sub-tile kernel on the 16-px plan) and the one-thread-per-
+    pixel design it replaced (the composite16_bwd_walk yardstick) against
+    the plain version within 1e-5 of each column's max, the same zero rows, and bit for bit the same
+    rows from two launches of B4."""
+    feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda, tile16=True)
+    n_gx, n_gy = n_tx // 2, n_ty // 2
+    fwd = tk16.composite16_plain(feat, ranges, n_gx, n_gy, W, H,
+                                 with_ntouch=False)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    cot = torch.randn(5, H, W, generator=g, device=cuda)
+    args = (feat, ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
+            cot[0:3], cot[3], cot[4], n_gx, n_gy, W, H)
+    before = (tk16.composite16_bwd.launches,
+              tk16.composite16_bwd_walk.launches)
+    got = tk16.composite16_bwd(*args)
+    again = tk16.composite16_bwd(*args)
+    old = tk16.composite16_bwd_walk(*args)
+    ref = tk16.composite16_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert (tk16.composite16_bwd.launches,
+            tk16.composite16_bwd_walk.launches) == (before[0] + 2,
+                                                    before[1] + 1)
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[:, 10:].any())
+    for col in range(10):
+        scale = float(ref[:, col].abs().max())
+        assert scale > 0, col
+        for rows in (got, old):
+            assert float((rows[:, col] - ref[:, col]).abs().max()) \
+                <= 1e-5 * scale, col
+    assert torch.equal(got.any(dim=1), ref.any(dim=1))
+
+
+@pytest.mark.parametrize("with_ntouch,nt_weight",
+                         [(False, False), (True, False), (True, True)])
+def test_subtile_mxu_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
+                                                        nt_weight):
+    """B1'-mxu / B1-mxu (the sub-tile kernel with the mxu margin) and the
+    one-CTA-per-tile design (the composite32_fwd_mxu_tile1024 yardstick)
+    against the plain mxu version under chip_smoke.py's MXU gates (mxu_gate_failure:
+    the values above MXU_IMG_TOL counted over the three planes together,
+    each within MXU_FLIP_TOL, each plane's 99.9th percentile within
+    MXU_P999_TOL); how far the two designs' images lie apart (max and
+    count of differing values) is printed. On the H100 one depth value of
+    this plan's 0.33 million flipped past 5e-3 in both designs (NVIDIA
+    H100 80GB HBM3, 700.00 W): a per-plane count would allow none. The
+    rows placed at alpha = 1/255 to an ulp of the f32 power are left out:
+    the tensor cores' power and the plain matmul's differ by rounding
+    there, which flips such a row's test by design."""
+    feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda, at_threshold=False)
+    ref = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+                               nt_weight, mxu=True)
+    wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
+    before = (wrapper.launches_mxu, tk.composite32_fwd_mxu_tile1024.launches)
+    got = tk.composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+                         nt_weight, mxu=True)
+    old = tk.composite32_fwd_mxu_tile1024(feat, ranges, n_tx, n_ty, W, H,
+                                          with_ntouch, nt_weight)
+    torch.cuda.synchronize()
+    assert (wrapper.launches_mxu,
+            tk.composite32_fwd_mxu_tile1024.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    live = int((ranges[:, 1] - ranges[:, 0]).sum())
+    for out in (got, old):
+        assert all(bool(torch.isfinite(x).all()) for x in out)
+        assert mxu_gate_failure(out, ref, live) is None
+    d = torch.cat([(a - b).abs().flatten() for a, b in zip(got, old)])
+    print(f"mxu sub-tile vs tile1024: max {float(d.max()):.3e}, "
+          f"{int((d > 0).sum())} of {d.numel()} values differ")
+    if with_ntouch:
+        assert float(got.n_touched_pairs.sum()) > 0
