@@ -152,7 +152,20 @@ kernels against the one-CTA-per-tile mxu design
 (``composite32_fwd_mxu_tile1024``: tile1024_ms, also held to the MXU
 gates) at s=4/2/1 and under nt_weight, each beside the cells it
 evaluates. No path may launch a yardstick; each has an entry of its own
-in the kernels line (launches 0). A failed gate is printed and the run
+in the kernels line (launches 0).
+
+The slice after that: B1'-bf16 / B1-bf16 (C entry composite32_fwd_bf16)
+and B3' / B3 (composite16_fwd) are the f32 sub-tile forward's body
+(csrc/subtile_fwd.cuh), with the bfloat16 falloff and a cull margin for
+its rounding, and on the 16-px plan (csrc/tile16_fwd_subtile.cu). Phase 2
+holds their images and n_touched bit for bit to plain and to the designs
+they replaced, and times each in turns beside that design: the
+one-CTA-per-tile bf16 body (``composite32_fwd_bf16_tile1024``:
+tile1024_ms) at the s=2 tracker plan and the s=1 pad-2 plan, and the
+one-thread-per-pixel B3 (``composite16_fwd_walk``: walk_ms) on the
+tracker's 16-px plans, the fresh plan and the mapping plan, beside the
+cells each evaluates; both yardsticks join the kernels line and the
+paths' forbidden launches. A failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
 """
@@ -611,12 +624,12 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                 nt_weight=False, tile16=False, time_plain=True, bf16=False,
                 mxu=False):
     """A forward kernel against its plain version on one plan: B1/B1'
-    (32x32; with PR 5's design timed in turns beside it and the cells the
-    sub-tile kernel evaluates), under ``bf16`` or ``mxu`` their bfloat16
-    or MXU bodies (and the f32 kernel's time on the same plan beside
-    them; the mxu sub-tile kernel, like the f32 one, beside the
-    one-CTA-per-tile mxu design in turns and with its cells), or under
-    ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile grid). Plain
+    (32x32), under ``bf16`` or ``mxu`` their bfloat16 or MXU bodies (and
+    the f32 kernel's time on the same plan beside them), or under
+    ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile grid). Each
+    sub-tile kernel is timed in turns beside the design it replaced (the
+    one-CTA-per-tile f32, bf16 and mxu bodies: tile1024_ms; the
+    one-thread-per-pixel B3: walk_ms), with the cells it evaluates. Plain
     time unless not ``time_plain``."""
     tile = 16 if tile16 else 32
 
@@ -631,16 +644,21 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         return tk.plain_walk(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                              nt_weight, tile=tile, bf16=bf16, mxu=mxu)
 
-    # the f32 32x32 forward: the sub-tile kernel, beside the
-    # one-CTA-per-tile design; under mxu (and not bf16) the mxu sub-tile
-    # kernel beside that design's mxu body
+    # the sub-tile kernels beside the designs they replaced: the f32,
+    # bf16 and mxu 32x32 forwards beside the one-CTA-per-tile bodies
+    # (tile1024), B3/B3' beside the one-thread-per-pixel walk (walk); the
+    # f32 32x32 kernel's images are held bit for bit to plain, the bf16
+    # and 16-px kernels' images and n_touched bit for bit to plain and to
+    # the design they replaced
     subtile = not (tile16 or bf16 or mxu)
-    yard = subtile or (mxu and not bf16)
+    exact = not mxu and (bf16 or tile16)
+    yard = not (bf16 and mxu)
+    yk = "walk" if tile16 else "tile1024"
     torch.cuda.synchronize()
     if yard:
         ref, walked, passed, stop_at = tk.plain_walk(
-            feat, ranges, n_tx, n_ty, w, h, with_ntouch, nt_weight, mxu=mxu,
-            done_at=True)
+            feat, ranges, n_tx, n_ty, w, h, with_ntouch, nt_weight,
+            tile=tile, bf16=bf16, mxu=mxu, done_at=True)
     else:
         (ref, walked, passed) = plain()
     got = kernel()
@@ -664,17 +682,26 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     over_tol = sum(int((diffs[k] > MXU_IMG_TOL[k]).sum()) for k in diffs)
     extra = {}
     if yard:
-        yardstick = (tk.composite32_fwd_mxu_tile1024 if mxu
-                     else tk.composite32_fwd_tile1024)
+        if tile16:
+            def old():
+                return tk16.composite16_fwd_walk(feat, ranges, n_tx // 2,
+                                                 n_ty // 2, w, h,
+                                                 with_ntouch, nt_weight)
+        else:
+            yardstick = (tk.composite32_fwd_mxu_tile1024 if mxu
+                         else tk.composite32_fwd_bf16_tile1024 if bf16
+                         else tk.composite32_fwd_tile1024)
 
-        def old():
-            return yardstick(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
-                             nt_weight)
+            def old():
+                return yardstick(feat, ranges, n_tx, n_ty, w, h,
+                                 with_ntouch, nt_weight)
         old_out = old()
-        extra["tile1024_max_abs_err"] = max(
+        extra[f"{yk}_max_abs_err"] = max(
             float((a - b).abs().max()) for a, b in zip(old_out[:3], ref[:3]))
-        extra["tile1024_nt_mismatch"] = int(
+        extra[f"{yk}_nt_mismatch"] = int(
             (old_out.n_touched_pairs != ref.n_touched_pairs).sum())
+        extra[f"equals_{yk}"] = all(
+            bool(torch.equal(a, b)) for a, b in zip(got, old_out))
         if mxu:
             # the two mxu designs apart: the tensor cores may sum a
             # pixel's products otherwise in another fragment position
@@ -684,12 +711,14 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                 vs_tile1024_max_abs_diff=float(apart.max()),
                 vs_tile1024_values_differing=int((apart > 0).sum()),
                 tile1024_gate=mxu_gate_failure(old_out, ref, live))
-        # in turns: PR 5's design, the new kernel twice, PR 5's again
+        # in turns: the earlier design, the new kernel twice, the earlier
+        # one again
         turns = [time_ms(f) for f in (old, kernel, kernel, old)]
         ms = (turns[1] + turns[2]) / 2
-        extra.update(tile1024_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
+        extra.update({f"{yk}_ms": (turns[0] + turns[3]) / 2,
+                      "turns_ms": turns})
         kept, rected = tk.subtile_cells(feat, ranges, n_tx, n_ty, stop_at,
-                                        mxu=mxu)
+                                        tile=tile, mxu=mxu, bf16=bf16)
         extra.update(post_cull_cells=kept, rect_cells=rected)
     else:
         ms = time_ms(kernel)
@@ -759,6 +788,18 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
             fail(f"{name}: PR 5's design (tile1024) differs from plain by "
                  f"{extra['tile1024_max_abs_err']:.3e}, "
                  f"{extra['tile1024_nt_mismatch']} n_touched mismatches")
+    if exact:
+        # the bf16 and 16-px sub-tile kernels: only skipped cells are
+        # dropped, so images and n_touched are plain's and the replaced
+        # design's, bit for bit
+        if max(errs.values()) > 0.0 or nt_bad:
+            fail(f"{name}: the sub-tile kernel is not bit-equal to plain "
+                 f"({errs}, {nt_bad} n_touched mismatches)")
+        if not extra[f"equals_{yk}"]:
+            fail(f"{name}: the sub-tile kernel's outputs differ from the "
+                 f"design it replaced ({yk}: {extra[f'{yk}_max_abs_err']:.3e}"
+                 f" from plain, {extra[f'{yk}_nt_mismatch']} n_touched "
+                 "mismatches)")
     if bf16 and rec["differs_from_f32"] <= IMG_TOL:
         fail(f"{name}: the bf16 kernel's image equals the f32 kernel's")
     return rec
@@ -1819,16 +1860,20 @@ WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
                                          "launches"),
             "composite32_fwd_mxu_tile1024": (
                 tk.composite32_fwd_mxu_tile1024, "launches"),
-            "composite16_bwd_walk": (tk16.composite16_bwd_walk, "launches")}
+            "composite16_bwd_walk": (tk16.composite16_bwd_walk, "launches"),
+            "composite32_fwd_bf16_tile1024": (
+                tk.composite32_fwd_bf16_tile1024, "launches"),
+            "composite16_fwd_walk": (tk16.composite16_fwd_walk, "launches")}
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
                 "composite32_bwd_bf16")
-# the designs the sub-tile kernels replaced (the one-CTA-per-tile f32
-# and mxu 32x32 bodies, the one-thread-per-pixel B4), timed beside them
-# in phase 2 only: no path may launch one
+# the designs the sub-tile kernels replaced (the one-CTA-per-tile f32,
+# mxu and bf16 32x32 bodies, the one-thread-per-pixel B4 and B3), timed
+# beside them in phase 2 only: no path may launch one
 YARDSTICKS = ("composite32_fwd_tile1024", "composite32_bwd_tile1024",
-              "composite32_fwd_mxu_tile1024", "composite16_bwd_walk")
+              "composite32_fwd_mxu_tile1024", "composite16_bwd_walk",
+              "composite32_fwd_bf16_tile1024", "composite16_fwd_walk")
 
 
 def count_of(name):
@@ -2258,6 +2303,22 @@ def window_overflow(be, uids):
     return worst
 
 
+def composite_part(kernel):
+    """The compositing kernel a device kernel's name belongs to
+    (composite32_fwd, composite32_bwd, composite16_fwd, composite16_bwd),
+    or None. The sub-tile forward of both tile sizes is one template
+    (csrc/subtile_fwd.cuh: composite_fwd_subtile<kNTouch, kNtWeight,
+    kBF16, kTile16>), told apart by its last argument."""
+    if "composite_fwd_subtile<" in kernel:
+        args = kernel.split("composite_fwd_subtile<", 1)[1].split(">", 1)[0]
+        tile16 = args.split(",")[-1].strip() in ("true", "(bool)1", "1")
+        return "composite16_fwd" if tile16 else "composite32_fwd"
+    return next((part for part in ("composite32_fwd", "composite32_bwd",
+                                   "composite16_fwd", "composite16_bwd")
+                 if f"{part}_kernel" in kernel or f"{part}_subtile" in kernel),
+                None)
+
+
 def profile_call(fn, name):
     """Run ``fn`` once under torch.profiler, device activity only: wall,
     device busy time (kernels, copies and fills) and of it the kernels'
@@ -2290,8 +2351,7 @@ def profile_call(fn, name):
     kern = sorted(((k, ms, n) for k, (ms, n) in agg.items()),
                   key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in kern)
-    comp_ms = {part: sum(r[1] for r in kern if f"{part}_kernel" in r[0]
-                         or f"{part}_subtile" in r[0])
+    comp_ms = {part: sum(r[1] for r in kern if composite_part(r[0]) == part)
                for part in ("composite32_fwd", "composite32_bwd",
                             "composite16_fwd", "composite16_bwd")}
     out_dir = os.path.join(ROOT, "chiprun_out")
@@ -2746,18 +2806,25 @@ def run(dev):
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
         bound_by=c["bound_by"], library_ms=None, shape=c["shape"],
         repeat_bit_equal=c["repeat_bit_equal"], **subtile_keys(c)))
+    # B3' and B3 (sub-tile) with the one-thread-per-pixel design's time on
+    # the same plan in the same call (walk_ms) and the cells they evaluate
+    b3 = {}
     for name, case, with_nt, line in (
             ("composite16_fwd", "room_s1_map16", False, 582),
             ("composite16_fwd_ntouch", "room_s1_fresh16", True, 562)):
-        c = next(c for c in cases16 if c["case"] == case
-                 and c["with_ntouch"] == with_nt and not c["nt_weight"])
+        c = b3[with_nt] = next(
+            c for c in cases16 if c["case"] == case
+            and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile_kernel16_fwd.cu",
+            name=name, route="cuda", source=csrc + "tile16_fwd_subtile.cu",
             replaces=f"{pallas16}:{line}", launches=total[name],
             max_abs_err=max(c["max_abs_err"].values()),
-            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
-            library_ms=None, shape=c["shape"]))
+            nt_mismatch=c["nt_mismatch"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            shape=c["shape"], walk_ms=c["walk_ms"],
+            post_cull_cells=c["post_cull_cells"], rect_cells=c["rect_cells"],
+            tile_walk_cells=c["walked_cells"],
+            walk_bound_ms=c["walk_bound_ms"]))
     # B4 (sub-tile) with the one-thread-per-pixel design's time on the
     # same plan in the same call (walk_ms) and the cells it evaluates
     c = next(c for c in b4_cases if c["cotangent"] == "loss")
@@ -2773,21 +2840,25 @@ def run(dev):
         tile_walk_cells=c["walked_cells"],
         walk_bound_ms=c["walk_bound_ms"]))
     b4 = c
-    # the bf16 variants at the s=2 tracker plan (forward) and the s=1
-    # exact plan (backward, loss cotangent), the f32 kernel's time on the
-    # same plan beside each; their bound is the f32 kernels' operation
-    # count (scalar bfloat16 arithmetic, no bf16x2 packing)
+    # the bf16 variants at the s=2 tracker plan (forward: the sub-tile
+    # bf16 kernel, with the one-CTA-per-tile bf16 design's time and the
+    # cells as for B1') and the s=1 exact plan (backward, loss cotangent),
+    # the f32 kernel's time on the same plan beside each; their bound is
+    # the f32 kernels' operation count (scalar bfloat16 arithmetic, no
+    # bf16x2 packing)
+    bf16_fwd = {}
     for name, with_nt, line in (("composite32_fwd_bf16", False, 662),
                                 ("composite32_fwd_ntouch_bf16", True, 642)):
-        c = next(c for c in cases_bf16 if c["case"] == "room_s2_bf16"
-                 and c["with_ntouch"] == with_nt and not c["nt_weight"])
+        c = bf16_fwd[with_nt] = next(
+            c for c in cases_bf16 if c["case"] == "room_s2_bf16"
+            and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile_kernel2_fwd.cu",
+            name=name, route="cuda", source=csrc + "tile32_fwd_subtile.cu",
             replaces=f"{pallas}:{line} (bf16=True, _chunk_terms :160-175)",
             launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
-            ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
-            library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
+            nt_mismatch=c["nt_mismatch"], ms=c["ms"], plain_ms=c["plain_ms"],
+            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
+            f32_ms=c["f32_ms"], shape=c["shape"], **subtile_keys(c)))
     c = next(c for c in b2_bf16_cases if c["case"] == "room_s1_polish_bf16"
              and c["cotangent"] == "loss")
     kernels.append(dict(
@@ -2855,7 +2926,14 @@ def run(dev):
              mxu_fwd[False]["tile1024_max_abs_err"],
              mxu_fwd[False]["tile1024_ms"]),
             ("composite16_bwd_walk", b4, "tile_kernel16_bwd.cu",
-             f"{pallas16}:622", b4["walk_max_abs_err"], b4["walk_ms"])):
+             f"{pallas16}:622", b4["walk_max_abs_err"], b4["walk_ms"]),
+            ("composite32_fwd_bf16_tile1024", bf16_fwd[False],
+             "tile_kernel2_fwd.cu", f"{pallas}:662 (bf16=True)",
+             bf16_fwd[False]["tile1024_max_abs_err"],
+             bf16_fwd[False]["tile1024_ms"]),
+            ("composite16_fwd_walk", b3[False], "tile_kernel16_fwd.cu",
+             f"{pallas16}:582", b3[False]["walk_max_abs_err"],
+             b3[False]["walk_ms"])):
         kernels.append(dict(
             name=name, route="cuda", source=csrc + src,
             replaces=line + " (yardstick)", launches=total[name],

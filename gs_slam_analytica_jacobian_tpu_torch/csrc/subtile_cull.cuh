@@ -1,7 +1,8 @@
-// What the sub-tile compositing kernels (tile32_fwd_subtile.cu,
-// tile32_fwd_subtile_mxu.cu, tile32_bwd_subtile.cu, tile16_bwd_subtile.cu)
-// share: the CTA and warp layout, the conservative per-warp block test
-// (with its margin for the tensor-core falloff), the rect16 compaction of
+// What the sub-tile compositing kernels (subtile_fwd.cuh's forward in
+// tile32_fwd_subtile.cu and tile16_fwd_subtile.cu, tile32_fwd_subtile_mxu.cu,
+// tile32_bwd_subtile.cu, tile16_bwd_subtile.cu) share: the CTA and warp
+// layout, the conservative per-warp block test (with its margins for the
+// bfloat16 and the tensor-core falloffs), the rect16 compaction of
 // a staged chunk, and the asynchronous staging of a chunk of pair rows
 // (one bulk copy, completion on an mbarrier).
 //
@@ -47,6 +48,48 @@
 // alpha < 1/255 at every pixel (a negative one gives NaN: kept). The plain PyTorch version is
 // ops/tile_kernel2.py::block_keep_plain, with the same operations in the
 // same order.
+//
+// The margin under bf16 (block_keep<true>: B1-bf16 / B1'-bf16 of
+// tile32_fwd_subtile.cu). There the kernel's alpha comes from
+// bf16_falloff.cuh: with bf() a rounding to bfloat16 (8 significant bits,
+// unit roundoff u_b = 2^-8) and dx, dy the f32 deltas,
+//   power_b = min(0, bf(bf(-0.5) bf(qa + qc) - qb)),
+//   qa = bf(bf(bf(ca) bf(dx)) bf(dx)), qc = bf(bf(bf(cc) bf(dy)) bf(dy)),
+//   qb = bf(bf(bf(cb) bf(dx)) bf(dy)),
+//   a_un = bf(bf(opa) bf(expf(power_b))).
+// The error is measured against the exact q at the f32 deltas (they lie
+// in the f32 rectangle [xlo, xhi] x [ylo, yhi] this test forms, since
+// rounding is monotone), and against the f32 conic, not its bfloat16
+// rounding (which can make it indefinite: no harm, the bound below holds
+// relative to the f32 terms).
+// - Power. qa, qc and qb each carry five roundings relative to their
+//   exact terms (the conic entry, two deltas, two products): |qa -
+//   ca dx^2| <= ((1 + u_b)^5 - 1) ca dx^2, and so on. bf(-0.5) is exact
+//   and the product with it too; the sum and the difference round once
+//   each. So |power_b - power| <= ((1 + u_b)^7 - 1) (0.5 (|qa| + |qc|) +
+//   |qb|) <= 7.1 u_b (0.5 (ca dx^2 + cc dy^2) + |cb dx dy|). Positive
+//   definiteness of the f32 conic, which prepare requires, gives
+//   |cb dx dy| <= (ca dx^2 + cc dy^2) / 2, so the error is at most
+//   7.1 u_b (ca dx^2 + cc dy^2) <= 3.55 u_b Smax at any pixel of the
+//   block. The clamp to <= 0 only moves power_b toward the exact power,
+//   which is <= 0. A product that overflows to inf gives a power of -inf
+//   or NaN, both skipped, as the exact power is then far below any L;
+//   subnormal products are off by less than 2^-133, inside the absolute
+//   term.
+// - Alpha. a_un carries three bfloat16 roundings (opa, the exp, the
+//   product) and expf's 2 f32 ulps: log a_un <= log opa + power_b +
+//   3.05 u_b. The widening is exact, and the 0.99 cap does not move the
+//   1/255 test.
+// So a pixel of the block passes only where qmin / 2 <= L + 3.55 u_b Smax
+// + 3.05 u_b up to this test's own rounding (the ~12u Smax and 1e-5 of
+// the f32 note, orders below). Under bf16 the pair is dropped only where
+//   qmin / 2 > L + kCullBf16Rel * Smax + kCullBf16Abs,
+// kCullBf16Rel = 2^-5 = 8 u_b (2.25 times the 3.55 u_b) and kCullBf16Abs
+// = 2^-5 (2.6 times the 3.05 u_b), in place of kCullRel and kCullAbs,
+// which they exceed by 2^13 and 2^11. The plain PyTorch version is
+// block_keep_plain(..., bf16=True), the same operations in the same
+// order; tests/test_torch_cull_bf16.py checks the power bound against
+// float64 and the test against _falloff(bf16=True).
 //
 // The margin under mxu (tile32_fwd_subtile_mxu.cu). There the kernel's
 // power is not the direct f32 form but G8 . P8 (mxu_falloff.cuh): the
@@ -111,6 +154,8 @@ constexpr float kCullRel = 3.814697265625e-06f;  // 2^-18
 constexpr float kCullAbs = 1.52587890625e-05f;   // 2^-16
 constexpr float kPdRel = 1.52587890625e-05f;     // 2^-16
 constexpr float kCullMxu = 1.52587890625e-05f;   // 2^-16
+constexpr float kCullBf16Rel = 0.03125f;         // 2^-5
+constexpr float kCullBf16Abs = 0.03125f;         // 2^-5
 constexpr float kHalfTile = 15.5f;     // |pxl|, |pyl| in a 32x32 tile
 constexpr float kHalfTileSq = 240.25f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -208,9 +253,13 @@ __device__ __forceinline__ float edge_min(float a, float lo, float hi,
 }
 
 // false only where the pair prepared in (p0, p1) is skipped at every
-// pixel of the 8x4 block at (xb, yb); see the note above
+// pixel of the 8x4 block at (xb, yb) (under kBF16 by the bfloat16
+// falloff, with its margin); see the note above
+template <bool kBF16 = false>
 __device__ __forceinline__ bool block_keep(const float4 p0, const float4 p1,
                                            float xb, float yb) {
+  constexpr float rel = kBF16 ? kCullBf16Rel : kCullRel;
+  constexpr float abs_ = kBF16 ? kCullBf16Abs : kCullAbs;
   const float mx = p0.x, my = p0.y, ca = p0.z, cb = p0.w, cc = p1.x;
   const float L = p1.w;
   const float xlo = mx - (xb + static_cast<float>(kBlockW - 1));
@@ -226,7 +275,7 @@ __device__ __forceinline__ bool block_keep(const float4 p0, const float4 p1,
   }
   const float smax = 2.0f * (ca * fmaxf(xlo * xlo, xhi * xhi) +
                              cc * fmaxf(ylo * ylo, yhi * yhi));
-  return !(0.5f * qmin > L + kCullRel * smax + kCullAbs);
+  return !(0.5f * qmin > L + rel * smax + abs_);
 }
 
 // Staging: one bulk copy (TMA, cp.async.bulk) of a chunk's contiguous
@@ -312,8 +361,10 @@ __device__ __forceinline__ void compact_rect(const float4 (*rows)[4], int n,
   if (lane == 0) *count = off;
 }
 
-// The warp's survivors of the block test among the m compacted rows:
-// bit k of keep[g] is row idx[32 g + k].
+// The warp's survivors of the block test (under kBF16 with the bfloat16
+// margin) among the m compacted rows: bit k of keep[g] is row
+// idx[32 g + k].
+template <bool kBF16 = false>
 __device__ __forceinline__ void cull(const float4 (*pre)[2],
                                      const unsigned char* idx, int m,
                                      float xb, float yb,
@@ -325,7 +376,7 @@ __device__ __forceinline__ void cull(const float4 (*pre)[2],
     bool k = false;
     if (j < m) {
       const int r = idx[j];
-      k = block_keep(pre[r][0], pre[r][1], xb, yb);
+      k = block_keep<kBF16>(pre[r][0], pre[r][1], xb, yb);
     }
     keep[g] = __ballot_sync(kFull, k);
   }

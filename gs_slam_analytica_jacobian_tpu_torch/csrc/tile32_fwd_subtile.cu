@@ -1,227 +1,71 @@
 // 32x32 forward alpha compositing for Hopper (sm_90a), on 16x16 sub-tile
-// CTAs with per-warp conservative culling and asynchronous staging.
+// CTAs with per-warp conservative culling and asynchronous staging: the
+// 32-px instantiations of subtile_fwd.cuh's body.
 //
 // Replaces the Pallas TPU kernel
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py
 //   ::make_forward_kernel (pallas_call at :642 with n_touched, :662 without)
-// in its f32 body, with the per-pixel semantics of tile_kernel2_fwd.cu
-// (reference forward.cu:406-535): for each 32x32 tile, walk the pairs
-// [ranges[t,0], ranges[t,1]) front to back for every pixel (integer
-// coordinates), power = -0.5 (ca dx^2 + cc dy^2) - cb dx dy, alpha =
-// min(0.99, opa exp(power)); skip the pair if power > 0, alpha < 1/255 or
-// the pixel's 16-px cell lies outside its rect16; if T (1 - alpha) < 1e-4
-// the pixel is done and the pair dropped; else accumulate rgb/depth with
-// weight alpha T and step T. n_touched[pair] counts in-image pixels
-// where the pair was included and T_incl > 0.5 (or, under nt_weight,
-// alpha T >= 1/255). The per-cell arithmetic and its order are
-// tile_kernel2_fwd.cu's, built with -fmad=false, so the images are bit
-// for bit the plain version's (ops/tile_kernel2.py::plain_walk).
+// in two of its bodies:
+// - composite32_fwd (B1 / B1'), the f32 body;
+// - composite32_fwd_bf16 (B1-bf16 / B1'-bf16), bf16=True: the falloff of
+//   _chunk_terms' bf16 branch (tile_kernel2.py:160-175), power and
+//   opa exp(power) in bfloat16 from f32 deltas (bf16_falloff.cuh),
+//   widened before the 0.99 cap and the skip tests; the block test with
+//   the bfloat16 margin (subtile_cull.cuh, kCullBf16Rel / kCullBf16Abs).
+// The per-cell arithmetic and its order are tile_kernel2_fwd.cu's, built
+// with -fmad=false, so the images are bit for bit the plain version's
+// (ops/tile_kernel2.py::plain_walk, with or without bf16).
 //
 // What bounds it on the H100: the FP32 operations of the cells a pixel
-// evaluates. At the room's plans 3-8% of the (pair, pixel) cells of a
-// 32x32 tile-walk pass the skip tests; the rest cost the falloff and the
-// tests for nothing, and one CTA of 1024 threads per tile left the card
-// part empty at s=4 and s=2 (60 and 209 tiles on 132 SMs).
-// What the design does about it (subtile_cull.cuh):
-// - one CTA of 256 threads per 16x16 quarter of a tile (4 x n_tiles
-//   CTAs, several resident on an SM), all reading their tile's range;
-//   the quarter is one rect16 cell, so the rect test runs once per staged
-//   pair (warp 0, ballot + prefix compaction into shared memory) instead
-//   of once per pixel, and the early exit is per quarter;
-// - each warp owns an 8x4 block of pixels; before walking a chunk its
-//   lanes test the compacted pairs against the block, one pair a lane,
-//   from terms (1/ca, 1/cc, log opa) prepared once per staged row
-//   (block_keep: drops a pair only where alpha < 1/255 at every pixel of
-//   the block as the f32 arithmetic computes it), and the warp walks the
-//   survivors in pair order; a warp whose pixels are all done skips the
-//   chunk;
-// - chunks of 64 pair rows (4 KB, one contiguous block) are staged by one
-//   bulk asynchronous copy (TMA, cp.async.bulk, completion on an
-//   mbarrier) into a double buffer: chunk c + 1 is in flight while chunk
-//   c is walked;
-// - n_touched: per surviving pair a warp ballot + popc, a fixed-order sum
-//   over the 8 warps in shared memory, and one float atomicAdd per pair
-//   and quarter into the zero-filled output. The addends are whole
-//   numbers below 2^24, so their f32 sum is exact in any order: the
-//   result is deterministic.
+// evaluates (under bf16 the scalar bfloat16 operations and conversions
+// run on the same CUDA-core pipes, no faster). At the room's plans 3-8%
+// of the (pair, pixel) cells of a 32x32 tile-walk pass the skip tests;
+// the rest cost the falloff and the tests for nothing, and one CTA of
+// 1024 threads per tile left the card part empty at s=4 and s=2 (60 and
+// 209 tiles on 132 SMs).
+// What the design does about it (subtile_fwd.cuh, subtile_cull.cuh): one
+// CTA of 256 threads per 16x16 quarter of a tile (4 x n_tiles CTAs,
+// several resident on an SM), all reading their tile's range; the rect16
+// compaction once per staged pair; an 8x4 pixel block per warp, tested
+// against the compacted pairs before the walk; chunks of 64 rows staged
+// by TMA bulk copies into a double buffer; n_touched summed over the 8
+// warps in a fixed order, then one float atomicAdd per pair and quarter
+// (whole numbers: exact, deterministic).
 //
-// PR 5's design (one CTA of 1024 threads per tile) stays compiled in
-// tile_kernel2_fwd.cu under the C entry composite32_fwd_tile1024, as a
-// yardstick timed on the same plans by chip_smoke.py only.
+// Resources (-Xptxas -v, sm_90a, chip_smoke.py's build lines): with
+// n_touched (either rule) 48 registers and 12384 bytes of static shared
+// memory, without it 47 and 10336, no spills, in f32 and in bf16 alike.
+// The f32 instantiations keep the registers, the shared memory and the
+// images (bit for bit) of this file's body before it moved to
+// subtile_fwd.cuh: only the template axes are new.
+//
+// The design these replaced, one CTA of 1024 threads per tile, stays
+// compiled in tile_kernel2_fwd.cu as yardsticks timed on the same plans
+// by chip_smoke.py only: the C entries composite32_fwd_tile1024 (f32) and
+// composite32_fwd_bf16_tile1024 (bf16).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "subtile_fwd.cuh"
 
-#include "subtile_cull.cuh"
-
-namespace {
-
-using namespace subtile;
-
-template <bool kNTouch, bool kNtWeight>
-__global__ void __launch_bounds__(kThreads, 4)
-composite32_fwd_subtile(const float4* __restrict__ feat,  // (B_al, 4) x float4
-                        const int2* __restrict__ ranges,  // (n_tiles,)
-                        float* __restrict__ out,          // (5, H, W)
-                        float* __restrict__ ntouch,       // (B_al,) zeroed
-                        int W, int H, int n_tx) {
-  __shared__ __align__(128) float4 s_rows[2][kChunk][4];
-  __shared__ __align__(8) uint64_t s_bar[2];
-  __shared__ unsigned char s_idx[kChunk];
-  __shared__ int s_m;
-  __shared__ float4 s_pre[kChunk][2];  // the block test's row terms
-  __shared__ int s_cnt[kNTouch ? kWarps : 1][kChunk];
-
-  const Geometry g = geometry(n_tx);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const bool inside = (g.x < W) && (g.y < H);
-  const float px = static_cast<float>(g.x);
-  const float py = static_cast<float>(g.y);
-  const float xb = static_cast<float>(g.xb);
-  const float yb = static_cast<float>(g.yb);
-
-  const int2 rg = ranges[g.tile];
-  const int n_chunks = (rg.y - rg.x + kChunk - 1) / kChunk;
-  float T = 1.0f;
-  bool done = !inside;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f, acc_d = 0.0f;
-
-  if (tid == 0) {
-    bar_init(&s_bar[0]);
-    bar_init(&s_bar[1]);
-    bar_fence_init();
-  }
-  // a quarter wholly outside the image has nothing to do; an empty run
-  // still writes its pixels (T = 1, zero sums)
-  if (__syncthreads_count(!done) == 0) return;
-  if (tid == 0 && n_chunks > 0) {
-    stage(s_rows[0], feat + static_cast<size_t>(rg.x) * 4,
-          min(kChunk, rg.y - rg.x) * 64, &s_bar[0]);
-  }
-
-  int c = 0;
-  for (; c < n_chunks; ++c) {
-    const int buf = c & 1;
-    const int base = rg.x + c * kChunk;
-    const int n = min(kChunk, rg.y - base);
-    bar_wait(&s_bar[buf], (c >> 1) & 1);
-    // the other buffer's rows were consumed in the previous step
-    if (tid == 0 && c + 1 < n_chunks) {
-      stage(s_rows[buf ^ 1], feat + static_cast<size_t>(base + kChunk) * 4,
-            min(kChunk, rg.y - base - kChunk) * 64, &s_bar[buf ^ 1]);
-    }
-    const float4(*rows)[4] = s_rows[buf];
-    compact_rect(rows, n, g.t16x, g.t16y, s_idx, &s_m, s_pre);
-    if (kNTouch) {
-      for (int r = lane; r < kChunk; r += 32) s_cnt[warp][r] = 0;
-    }
-    __syncthreads();
-
-    if (__any_sync(kFull, !done)) {
-      unsigned keep[kChunk / 32];
-      cull(s_pre, s_idx, s_m, xb, yb, keep);
-#pragma unroll
-      for (int h = 0; h < kChunk / 32; ++h) {
-        unsigned bits = keep[h];
-        while (bits) {
-          const int r = s_idx[h * 32 + __ffs(bits) - 1];
-          bits &= bits - 1u;
-          bool counted = false;
-          if (!done) {
-            const float4 f0 = rows[r][0];  // mx, my, ca, cb
-            const float4 f1 = rows[r][1];  // cc, opa, r, g
-            const float4 f2 = rows[r][2];  // b, depth, rect x0, rect y0
-            const float dx = f0.x - px;
-            const float dy = f0.y - py;
-            const float power =
-                -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
-            if (power <= 0.0f) {
-              const float a_un = f1.y * expf(power);
-              const float alpha = fminf(kAlphaMax, a_un);
-              if (alpha >= kAlphaMin) {
-                const float T_incl = T * (1.0f - alpha);
-                if (T_incl < kTEps) {
-                  done = true;  // the triggering pair is dropped
-                } else {
-                  const float w = alpha * T;
-                  acc_r += f1.z * w;
-                  acc_g += f1.w * w;
-                  acc_b += f2.x * w;
-                  acc_d += f2.y * w;
-                  if (kNTouch) {
-                    counted = kNtWeight ? (w >= kAlphaMin) : (T_incl > 0.5f);
-                  }
-                  T = T_incl;
-                }
-              }
-            }
-          }
-          if (kNTouch) {
-            const unsigned ballot = __ballot_sync(kFull, counted);
-            if (lane == 0) s_cnt[warp][r] = __popc(ballot);
-          }
-        }
-      }
-    }
-
-    if (kNTouch) {
-      __syncthreads();
-      if (tid < n) {
-        int s = 0;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += s_cnt[w][tid];
-        if (s) atomicAdd(&ntouch[base + tid], static_cast<float>(s));
-      }
-    }
-    if (__syncthreads_count(!done) == 0) break;  // the quarter is done
-  }
-  // a copy still in flight must land before the CTA's shared memory goes
-  if (tid == 0 && c + 1 < n_chunks) bar_wait(&s_bar[(c + 1) & 1],
-                                             ((c + 1) >> 1) & 1);
-
-  if (inside) {
-    const size_t hw = static_cast<size_t>(H) * W;
-    const size_t p = static_cast<size_t>(g.y) * W + g.x;
-    out[p] = acc_r;
-    out[hw + p] = acc_g;
-    out[2 * hw + p] = acc_b;
-    out[3 * hw + p] = acc_d;
-    out[4 * hw + p] = T;
-  }
-}
-
-template <bool kNTouch, bool kNtWeight>
-int launch_one(const void* feat, const void* ranges, void* out, void* ntouch,
-               int n_tiles, int n_tx, int W, int H, void* stream) {
-  composite32_fwd_subtile<kNTouch, kNtWeight>
-      <<<4 * n_tiles, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const float4*>(feat), static_cast<const int2*>(ranges),
-          static_cast<float*>(out), static_cast<float*>(ntouch), W, H, n_tx);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// C entry, loaded with ctypes: composite32_fwd (f32). feat: (B_al, 16)
-// f32, 16-byte aligned; ranges: (n_tiles, 2) int32; out: (5, H, W) f32;
-// ntouch: (B_al,) f32, zero-filled by the caller (pairs a tile never
-// reaches must read 0). Launch on ``stream`` and return
-// cudaGetLastError().
+// C entries, loaded with ctypes: composite32_fwd (f32) and
+// composite32_fwd_bf16 (the bfloat16 falloff), both 32x32 tiles of
+// subtile_fwd.cuh's body. feat: (B_al, 16) f32, 16-byte aligned; ranges:
+// (n_tiles, 2) int32; out: (5, H, W) f32; ntouch: (B_al,) f32,
+// zero-filled by the caller (pairs a tile never reaches must read 0).
+// Launch on ``stream`` and return cudaGetLastError().
 extern "C" int composite32_fwd(const void* feat, const void* ranges,
                                void* out, void* ntouch, int n_tiles,
                                int n_tx, int W, int H, int with_ntouch,
                                int nt_weight, void* stream) {
-  if (n_tiles <= 0) return 0;
-  if (!with_ntouch) {
-    return launch_one<false, false>(feat, ranges, out, ntouch, n_tiles, n_tx,
-                                    W, H, stream);
-  }
-  if (nt_weight) {
-    return launch_one<true, true>(feat, ranges, out, ntouch, n_tiles, n_tx,
-                                  W, H, stream);
-  }
-  return launch_one<true, false>(feat, ranges, out, ntouch, n_tiles, n_tx, W,
-                                 H, stream);
+  return subtile::launch_fwd<false, false>(feat, ranges, out, ntouch,
+                                           n_tiles, n_tx, W, H, with_ntouch,
+                                           nt_weight, stream);
+}
+
+extern "C" int composite32_fwd_bf16(const void* feat, const void* ranges,
+                                    void* out, void* ntouch, int n_tiles,
+                                    int n_tx, int W, int H, int with_ntouch,
+                                    int nt_weight, void* stream) {
+  return subtile::launch_fwd<true, false>(feat, ranges, out, ntouch,
+                                          n_tiles, n_tx, W, H, with_ntouch,
+                                          nt_weight, stream);
 }

@@ -1,4 +1,7 @@
-// 16x16 forward alpha compositing for Hopper (sm_90a).
+// 16x16 forward alpha compositing for Hopper (sm_90a): the
+// one-thread-per-pixel design that tile16_fwd_subtile.cu replaced, kept
+// under the C entry composite16_fwd_walk as a yardstick that only
+// chip_smoke.py times on the same plans.
 //
 // Replaces the Pallas TPU kernel
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel16.py
@@ -152,15 +155,17 @@ composite16_fwd_kernel(const float4* __restrict__ feat,   // (B_al, 4) x float4
 
 }  // namespace
 
-// C entry, loaded with ctypes; the signature of composite32_fwd. feat:
+// C entry, loaded with ctypes: composite16_fwd_walk (the yardstick), the
+// signature of composite32_fwd. feat:
 // (B_al, 16) f32, 16-byte aligned; ranges: (n_tiles, 2) int32 over the
 // n_tx-wide 16-px grid; out: (5, H, W) f32; ntouch: (B_al,) f32,
 // zero-filled by the caller. Launches on ``stream`` and returns
 // cudaGetLastError().
-extern "C" int composite16_fwd(const void* feat, const void* ranges,
-                               void* out, void* ntouch, int n_tiles,
-                               int n_tx, int W, int H, int with_ntouch,
-                               int nt_weight, void* stream) {
+extern "C" int composite16_fwd_walk(const void* feat, const void* ranges,
+                                    void* out, void* ntouch, int n_tiles,
+                                    int n_tx, int W, int H,
+                                    int with_ntouch, int nt_weight,
+                                    void* stream) {
   if (n_tiles <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float4* f4 = static_cast<const float4*>(feat);

@@ -35,8 +35,11 @@
 // and add rounds as in the plain PyTorch version, so the alpha and
 // transmittance thresholds decide alike in both.
 //
-// The bf16 variant (C entry composite32_fwd_bf16) replaces the same two
-// call sites with bf16=True: the falloff of _chunk_terms' bf16 branch
+// The bf16 variant (C entry composite32_fwd_bf16_tile1024; this design's
+// bf16 body, which the C entry composite32_fwd_bf16 of
+// tile32_fwd_subtile.cu replaced, kept as a yardstick that only
+// chip_smoke.py times on the same plans) computes the same two call sites
+// with bf16=True: the falloff of _chunk_terms' bf16 branch
 // (tile_kernel2.py:160-175), power and opa exp(power) in bfloat16 from f32
 // deltas (bf16_falloff.cuh), widened to f32 before the 0.99 cap and the
 // skip tests; transmittance, the 1e-4 stop and the sums stay f32. Its
@@ -297,8 +300,9 @@ mxu_power_tile_kernel(const float4* __restrict__ feat,  // (n, 4) x float4
 // C entries, loaded with ctypes: composite32_fwd_tile1024 (f32: this
 // design's f32 body, which the C entry composite32_fwd of
 // tile32_fwd_subtile.cu replaced; kept as a yardstick that only
-// chip_smoke.py times on the same plans), composite32_fwd_bf16 (the
-// bfloat16 falloff) and composite32_fwd_mxu_tile1024 (the tensor-core
+// chip_smoke.py times on the same plans), composite32_fwd_bf16_tile1024
+// (the bfloat16 falloff, likewise a yardstick since this body moved to
+// tile32_fwd_subtile.cu) and composite32_fwd_mxu_tile1024 (the tensor-core
 // falloff and the log-space transmittance, likewise a yardstick since
 // tile32_fwd_subtile_mxu.cu; under mxu the reference's bf16 flag has no
 // effect on the forward). feat: (B_al, 16)
@@ -315,10 +319,12 @@ extern "C" int composite32_fwd_tile1024(const void* feat, const void* ranges,
                               with_ntouch, nt_weight, stream);
 }
 
-extern "C" int composite32_fwd_bf16(const void* feat, const void* ranges,
-                                    void* out, void* ntouch, int n_tiles,
-                                    int n_tx, int W, int H, int with_ntouch,
-                                    int nt_weight, void* stream) {
+extern "C" int composite32_fwd_bf16_tile1024(const void* feat,
+                                             const void* ranges, void* out,
+                                             void* ntouch, int n_tiles,
+                                             int n_tx, int W, int H,
+                                             int with_ntouch, int nt_weight,
+                                             void* stream) {
   return launch<true, false>(feat, ranges, out, ntouch, n_tiles, n_tx, W, H,
                              with_ntouch, nt_weight, stream);
 }

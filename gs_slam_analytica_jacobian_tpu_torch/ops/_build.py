@@ -41,14 +41,15 @@ _BWD_ARGS = [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]
 _ABL16_ARGS = [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
 LIBRARIES = {
     "tile32_fwd_subtile": ("tile32_fwd_subtile.cu",
-                           {"composite32_fwd": _FWD_ARGS}),
+                           {"composite32_fwd": _FWD_ARGS,
+                            "composite32_fwd_bf16": _FWD_ARGS}),
     "tile32_fwd_subtile_mxu": ("tile32_fwd_subtile_mxu.cu",
                                {"composite32_fwd_mxu": _FWD_ARGS}),
     "tile32_bwd_subtile": ("tile32_bwd_subtile.cu",
                            {"composite32_bwd": _BWD_ARGS}),
     "tile_kernel2_fwd": ("tile_kernel2_fwd.cu",
                          {"composite32_fwd_tile1024": _FWD_ARGS,
-                          "composite32_fwd_bf16": _FWD_ARGS,
+                          "composite32_fwd_bf16_tile1024": _FWD_ARGS,
                           "composite32_fwd_mxu_tile1024": _FWD_ARGS,
                           "mxu_power_tile": [_VP, _INT, _INT, _INT, _VP,
                                              _VP]}),
@@ -57,8 +58,10 @@ LIBRARIES = {
                           "composite32_bwd_bf16": _BWD_ARGS,
                           "composite32_bwd_mxu": _BWD_ARGS,
                           "composite32_bwd_bf16_mxu": _BWD_ARGS}),
+    "tile16_fwd_subtile": ("tile16_fwd_subtile.cu",
+                           {"composite16_fwd": _FWD_ARGS}),
     "tile_kernel16_fwd": ("tile_kernel16_fwd.cu",
-                          {"composite16_fwd": _FWD_ARGS}),
+                          {"composite16_fwd_walk": _FWD_ARGS}),
     "tile16_bwd_subtile": ("tile16_bwd_subtile.cu",
                            {"composite16_bwd": _BWD_ARGS}),
     "tile_kernel16_bwd": ("tile_kernel16_bwd.cu",

@@ -2,8 +2,8 @@
 wrappers, their plain PyTorch versions and the differentiable
 ``composite16`` (counterpart of ops/pallas/tile_kernel16.py).
 
-The forward kernel (``csrc/tile_kernel16_fwd.cu``) replaces the Pallas TPU
-kernel ``make_forward_kernel16`` in both of its call forms:
+The forward kernel (``csrc/tile16_fwd_subtile.cu``) replaces the Pallas
+TPU kernel ``make_forward_kernel16`` in both of its call forms:
 
 - ``composite16_fwd`` (B3') — without per-pair n_touched (``_fwd_impl16``
   ``with_ntouch=False``, pallas_call at tile_kernel16.py:582): every
@@ -11,6 +11,16 @@ kernel ``make_forward_kernel16`` in both of its call forms:
 - ``composite16_fwd_ntouch`` (B3) — with per-pair n_touched, optionally
   under the blend-weight rule ``nt_weight`` (pallas_call at :562): the
   window-visibility renders.
+
+It is the 32x32 forward's sub-tile body (``csrc/subtile_fwd.cuh``) on a
+16x16 tile: an 8x4 pixel block per warp, the rect16 compaction and the
+conservative block test of ``csrc/subtile_cull.cuh``, bulk asynchronous
+staging, n_touched stored once per pair without atomics (a 16-px pair
+belongs to one tile); ``plain_walk(tile=16, cull=True)`` walks only the
+cells it keeps and ``subtile_cells(tile=16)`` counts them. The
+one-thread-per-pixel B3 it replaced (``csrc/tile_kernel16_fwd.cu``) stays
+as the yardstick wrapper ``composite16_fwd_walk``, launched by nothing on
+a path.
 
 The backward kernel (``csrc/tile16_bwd_subtile.cu``, wrapper
 ``composite16_bwd``, B4) replaces ``make_backward_kernel16``
@@ -75,8 +85,8 @@ def composite16_fwd(feat: torch.Tensor, ranges: torch.Tensor, n_gx: int,
     if feat.device.type == "cpu":
         return composite16_plain(feat, ranges, n_gx, n_gy, W, H,
                                  with_ntouch=False)
-    out = launch_fwd("tile_kernel16_fwd", feat, ranges, 2 * n_gx, 2 * n_gy,
-                     W, H, False, False, "composite16_fwd")
+    out = launch_fwd("tile16_fwd_subtile", feat, ranges, 2 * n_gx,
+                     2 * n_gy, W, H, False, False, "composite16_fwd")
     composite16_fwd.launches += 1
     return out
 
@@ -93,13 +103,35 @@ def composite16_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
     if feat.device.type == "cpu":
         return composite16_plain(feat, ranges, n_gx, n_gy, W, H,
                                  with_ntouch=True, nt_weight=nt_weight)
-    out = launch_fwd("tile_kernel16_fwd", feat, ranges, 2 * n_gx, 2 * n_gy,
-                     W, H, True, nt_weight, "composite16_fwd")
+    out = launch_fwd("tile16_fwd_subtile", feat, ranges, 2 * n_gx,
+                     2 * n_gy, W, H, True, nt_weight, "composite16_fwd")
     composite16_fwd_ntouch.launches += 1
     return out
 
 
 composite16_fwd_ntouch.launches = 0
+
+
+def composite16_fwd_walk(feat: torch.Tensor, ranges: torch.Tensor,
+                         n_gx: int, n_gy: int, W: int, H: int,
+                         with_ntouch: bool = False,
+                         nt_weight: bool = False) -> Composite2Out:
+    """The B3 / B3' of the one-thread-per-pixel design that the sub-tile
+    kernel replaced (``csrc/tile_kernel16_fwd.cu``, C entry
+    ``composite16_fwd_walk``): a yardstick timed beside
+    ``composite16_fwd`` / ``composite16_fwd_ntouch`` on the same plans,
+    launched by no path."""
+    _check(feat, ranges, 2 * n_gx, 2 * n_gy)
+    if feat.device.type == "cpu":
+        return composite16_plain(feat, ranges, n_gx, n_gy, W, H,
+                                 with_ntouch=with_ntouch, nt_weight=nt_weight)
+    out = launch_fwd("tile_kernel16_fwd", feat, ranges, 2 * n_gx, 2 * n_gy,
+                     W, H, with_ntouch, nt_weight, "composite16_fwd_walk")
+    composite16_fwd_walk.launches += 1
+    return out
+
+
+composite16_fwd_walk.launches = 0
 
 
 def composite16_bwd(feat: torch.Tensor, ranges: torch.Tensor,

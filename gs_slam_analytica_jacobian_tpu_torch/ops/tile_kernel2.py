@@ -32,19 +32,24 @@ their own and launched by nothing on a path.
 
 Each wrapper takes ``bf16``: the reference's bfloat16 bodies of the same
 three call sites (``_chunk_terms(bf16=True)``, tile_kernel2.py:160-175,
-and the backward's bf16 branch, :488-508; one-CTA-per-tile kernels in
-``csrc/tile_kernel2_fwd.cu`` and ``csrc/tile_kernel2_bwd.cu``), which the
-trackers run under ``kernel_bf16``. The falloff is evaluated in bfloat16
-from f32 pixel deltas, every product and sum rounded to bfloat16 in the
-expression's order, the power clamped to <= 0, ``opa * exp(power)``
-rounded once more and widened; transmittance and the sums stay f32. The
-backward rounds G, dx, dy and dL/dG to bfloat16 and forms the
-quadratic-form products in bfloat16, each widened before its f32 pixel
-sum. The bf16 kernels are
-separate C entries of the same sources with launch counters of their own
-(``launches_bf16``); the plain versions take ``bf16`` too and round
-exactly where the kernels do (torch rounds after every bfloat16 operation,
-as ``__hmul_rn``/``__hadd_rn``/``__hsub_rn`` do).
+and the backward's bf16 branch, :488-508), which the trackers run under
+``kernel_bf16``. The bf16 forward is the f32 forward's sub-tile body
+(``csrc/subtile_fwd.cuh``, C entry ``composite32_fwd_bf16`` of
+``csrc/tile32_fwd_subtile.cu``) with the bfloat16 falloff and a block
+test whose margin covers its rounding (``block_keep_plain(...,
+bf16=True)``); the one-CTA-per-tile bf16 forward it replaced stays as the
+yardstick ``composite32_fwd_bf16_tile1024``. The bf16 backward is still
+the one-CTA-per-tile kernel of ``csrc/tile_kernel2_bwd.cu``. The
+falloff is evaluated in bfloat16 from f32 pixel deltas, every product and
+sum rounded to bfloat16 in the expression's order, the power clamped to
+<= 0, ``opa * exp(power)`` rounded once more and widened; transmittance
+and the sums stay f32. The backward rounds G, dx, dy and dL/dG to
+bfloat16 and forms the quadratic-form products in bfloat16, each widened
+before its f32 pixel sum. The bf16 kernels are separate C entries with
+launch counters of their own (``launches_bf16``); the plain versions take
+``bf16`` too and round exactly where the kernels do (torch rounds after
+every bfloat16 operation, as ``__hmul_rn``/``__hadd_rn``/``__hsub_rn``
+do).
 
 Each wrapper also takes ``mxu``: the reference's MXU bodies of the same
 call sites (``_mxu_power``, tile_kernel2.py:96-128, the forward's
@@ -118,6 +123,10 @@ PD_REL = 2.0 ** -16
 # the block test's margin under mxu: CULL_MXU times a bound of the
 # tile-local expansion's terms (|pxl|, |pyl| <= HALF_TILE in a 32x32 tile)
 CULL_MXU = 2.0 ** -16
+# the block test's margin under bf16 (the bfloat16 falloff), in place of
+# CULL_REL and CULL_ABS
+CULL_BF16_REL = 2.0 ** -5
+CULL_BF16_ABS = 2.0 ** -5
 HALF_TILE = (TPX - 1) / 2.0
 HALF_TILE_SQ = HALF_TILE * HALF_TILE
 
@@ -319,7 +328,7 @@ def mxu_margin_plain(f: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor
 
 
 def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
-                     centre=None) -> torch.Tensor:
+                     centre=None, bf16: bool = False) -> torch.Tensor:
     """The sub-tile kernels' conservative block test
     (``csrc/subtile_cull.cuh``: ``prepare`` then ``block_keep``, the same
     f32 operations in the same order): False only where pair row ``f``
@@ -338,7 +347,10 @@ def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
     32x32 tile (broadcast against ``f[..., 0]``) and L carries
     ``mxu_margin_plain`` too: the tensor-core power and the plain
     version's f32 matmul round relative to the tile-local expansion's
-    terms."""
+    terms. Under ``bf16`` the margin is that of the bfloat16 falloff
+    (``_falloff(bf16=True)``, every product and sum rounded to 8
+    significant bits): CULL_BF16_REL Smax + CULL_BF16_ABS in place of
+    CULL_REL Smax + CULL_ABS (the source's note derives it)."""
     mx, my, ca, cb, cc, opa = (f[..., i] for i in range(6))
     finite = (torch.isfinite(mx) & torch.isfinite(my) & torch.isfinite(ca)
               & torch.isfinite(cb) & torch.isfinite(cc)
@@ -370,7 +382,9 @@ def block_keep_plain(f: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
     qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
     smax = 2.0 * (ca * torch.fmax(xlo * xlo, xhi * xhi)
                   + cc * torch.fmax(ylo * ylo, yhi * yhi))
-    return ~(0.5 * qmin > L + CULL_REL * smax + CULL_ABS)
+    rel, abs_ = (CULL_BF16_REL, CULL_BF16_ABS) if bf16 else (CULL_REL,
+                                                             CULL_ABS)
+    return ~(0.5 * qmin > L + rel * smax + abs_)
 
 
 def _pixel_blocks(n_tx: int, n_ty: int, dev, tile: int = TPX):
@@ -406,16 +420,13 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
     body instead (``_plain_walk_mxu``), which takes precedence over
     ``bf16``.
 
-    ``cull`` (f32 at either tile size, and mxu) skips every cell whose
-    (pair, 8x4 block) ``block_keep_plain`` drops, as the sub-tile kernels
-    do (under mxu with the margin of the tensor-core falloff); the outputs
-    and the passed cells are the same as without it. ``done_at`` appends
+    ``cull`` skips every cell whose (pair, 8x4 block) ``block_keep_plain``
+    drops, as the sub-tile kernels do (under bf16 and under mxu with the
+    margin of that falloff); the outputs and the passed cells are the
+    same as without it. ``done_at`` appends
     a fourth result, (n_tiles, tile^2) int64: for each pixel the offset in
     its tile's run of the pair at which it was done, -1 outside the image
     and 2^62 where it never was (``subtile_cells`` reads it)."""
-    if (cull or done_at) and bf16 and not mxu:
-        raise ValueError("cull and done_at are options of the f32 and mxu "
-                         "walks only")
     if mxu:
         if tile != TPX:
             raise ValueError("mxu is a body of the 32x32 kernels only")
@@ -469,7 +480,8 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
         ok = (row_ok[..., None] & rect_ok & (power <= 0.0)
               & (alpha >= ALPHA_MIN))                          # (S, k, P)
         if cull:
-            ok &= block_keep_plain(f[..., None, :], xb[sel], yb[sel])
+            ok &= block_keep_plain(f[..., None, :], xb[sel], yb[sel],
+                                   bf16=bf16)
 
         T_s, done_s, acc_s = T[sel], done[sel], acc[sel]
         stop_s = stop_at[sel]
@@ -503,13 +515,15 @@ def plain_walk(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
 
 def subtile_cells(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                   n_ty: int, stop_at: torch.Tensor, tile: int = TPX,
-                  mxu: bool = False, batch: int = 1 << 17
-                  ) -> Tuple[int, int]:
+                  mxu: bool = False, bf16: bool = False,
+                  batch: int = 1 << 17) -> Tuple[int, int]:
     """The (pair, pixel) cells the sub-tile kernels evaluate on a plan of
-    ``tile``-px tiles (32: B1/B1', and under ``mxu`` B1-mxu/B1'-mxu, whose
-    block test carries the mxu margin; 16: B4), from ``plain_walk(...,
-    done_at=True)``'s ``stop_at``: (after the rect16 compaction and the
-    block test, after the rect16 compaction alone). A warp's 8x4 block
+    ``tile``-px tiles (32: B1/B1', under ``bf16`` B1-bf16/B1'-bf16 and
+    under ``mxu`` B1-mxu/B1'-mxu, whose block tests carry the margin of
+    their falloff; 16: B3/B3' and B4), from ``plain_walk(...,
+    done_at=True)``'s ``stop_at`` (of the walk of the same body): (after
+    the rect16 compaction and the block test, after the rect16 compaction
+    alone). A warp's 8x4 block
     walks chunk c of SUB_CHUNK pair rows of its tile's run if one of its
     pixels is not done at the chunk's start (its stop offset >= c *
     SUB_CHUNK), and then evaluates 32 cells for each pair of the chunk that
@@ -548,7 +562,8 @@ def subtile_cells(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
         centre = (tuple(c[:, :, 0] for c in _tile_centres(t, n_tx))
                   if mxu else None)
         keep = block_keep_plain(f[:, None, :], x0.to(torch.float32),
-                                y0.to(torch.float32), centre=centre)
+                                y0.to(torch.float32), centre=centre,
+                                bf16=bf16 and not mxu)
         rected += int(live.sum())
         kept += int((live & keep).sum())
     return 32 * kept, 32 * rected
@@ -611,10 +626,10 @@ def _variant(bf16: bool, mxu: bool) -> str:
 
 
 def _fwd_lib(suffix: str) -> str:
-    """The library of a forward variant: the f32 and mxu sub-tile kernels,
-    or the one-CTA-per-tile bf16 body."""
-    return {"": "tile32_fwd_subtile", "_mxu": "tile32_fwd_subtile_mxu",
-            "_bf16": "tile_kernel2_fwd"}[suffix]
+    """The library of a forward variant: the f32 and bf16 sub-tile kernels
+    share one, the mxu one has its own."""
+    return {"": "tile32_fwd_subtile", "_bf16": "tile32_fwd_subtile",
+            "_mxu": "tile32_fwd_subtile_mxu"}[suffix]
 
 
 def _count(wrapper, suffix: str):
@@ -688,6 +703,29 @@ def composite32_fwd_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
 
 
 composite32_fwd_tile1024.launches = 0
+
+
+def composite32_fwd_bf16_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
+                                  n_tx: int, n_ty: int, W: int, H: int,
+                                  with_ntouch: bool = False,
+                                  nt_weight: bool = False) -> Composite2Out:
+    """The bf16 forward of the one-CTA-per-tile design that the sub-tile
+    kernel replaced (``csrc/tile_kernel2_fwd.cu``, C entry
+    ``composite32_fwd_bf16_tile1024``): a yardstick timed beside
+    ``composite32_fwd(bf16=True)`` on the same plans, launched by no
+    path."""
+    _check(feat, ranges, n_tx, n_ty)
+    if feat.device.type == "cpu":
+        return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
+                                 with_ntouch=with_ntouch, nt_weight=nt_weight,
+                                 bf16=True)
+    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
+                     with_ntouch, nt_weight, "composite32_fwd_bf16_tile1024")
+    composite32_fwd_bf16_tile1024.launches += 1
+    return out
+
+
+composite32_fwd_bf16_tile1024.launches = 0
 
 
 def composite32_fwd_mxu_tile1024(feat: torch.Tensor, ranges: torch.Tensor,

@@ -602,3 +602,65 @@ def test_subtile_mxu_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
           f"{int((d > 0).sum())} of {d.numel()} values differ")
     if with_ntouch:
         assert float(got.n_touched_pairs.sum()) > 0
+
+
+@pytest.mark.parametrize("with_ntouch,nt_weight",
+                         [(False, False), (True, False), (True, True)])
+def test_subtile_bf16_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
+                                                         nt_weight):
+    """B1'-bf16 / B1-bf16 (the sub-tile kernel with the bfloat16 falloff
+    and its cull margin) and the one-CTA-per-tile design it replaced (the
+    composite32_fwd_bf16_tile1024 yardstick) bit for bit against the plain
+    bf16 version, rows at alpha = 1/255 included; bf16 is applied (the
+    images differ from the f32 kernel's)."""
+    feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda)
+    ref = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+                               nt_weight, bf16=True)
+    wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
+    before = (wrapper.launches, wrapper.launches_bf16,
+              tk.composite32_fwd_bf16_tile1024.launches)
+    got = tk.composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+                         nt_weight, bf16=True)
+    old = tk.composite32_fwd_bf16_tile1024(feat, ranges, n_tx, n_ty, W, H,
+                                           with_ntouch, nt_weight)
+    f32 = tk.composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
+                         nt_weight)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_bf16,
+            tk.composite32_fwd_bf16_tile1024.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1)
+    for a, b, c in zip(got, ref, old):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
+    assert float((got.color_sum - f32.color_sum).abs().max()) > 1e-4
+    if with_ntouch:
+        assert float(got.n_touched_pairs.sum()) > 0
+
+
+@pytest.mark.parametrize("with_ntouch,nt_weight",
+                         [(False, False), (True, False), (True, True)])
+def test_subtile_forward16_matches_plain_on_hard_plan(cuda, with_ntouch,
+                                                      nt_weight):
+    """B3' / B3 (the sub-tile kernel on the 16-px plan, n_touched stored
+    without atomics) and the one-thread-per-pixel design it replaced (the
+    composite16_fwd_walk yardstick) bit for bit against the plain
+    version."""
+    feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda, tile16=True)
+    n_gx, n_gy = n_tx // 2, n_ty // 2
+    ref = tk16.composite16_plain(feat, ranges, n_gx, n_gy, W, H, with_ntouch,
+                                 nt_weight)
+    wrapper = (tk16.composite16_fwd_ntouch if with_ntouch
+               else tk16.composite16_fwd)
+    before = (wrapper.launches, tk16.composite16_fwd_walk.launches)
+    got = tk16.composite16(feat, ranges, n_gx, n_gy, W, H, with_ntouch,
+                           nt_weight)
+    old = tk16.composite16_fwd_walk(feat, ranges, n_gx, n_gy, W, H,
+                                    with_ntouch, nt_weight)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, tk16.composite16_fwd_walk.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b, c in zip(got, ref, old):
+        assert torch.equal(a, b)
+        assert torch.equal(c, b)
+    if with_ntouch:
+        assert float(got.n_touched_pairs.sum()) > 0
