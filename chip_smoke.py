@@ -165,11 +165,30 @@ tile1024_ms) at the s=2 tracker plan and the s=1 pad-2 plan, and the
 one-thread-per-pixel B3 (``composite16_fwd_walk``: walk_ms) on the
 tracker's 16-px plans, the fresh plan and the mapping plan, beside the
 cells each evaluates; both yardsticks join the kernels line and the
-paths' forbidden launches. A failed gate is printed and the run
+paths' forbidden launches.
+
+The slice after those: B2-bf16 and B2-mxu (C entries composite32_bwd_bf16
+and composite32_bwd_mxu) are B2's sub-tile body (csrc/tile32_bwd_subtile.cu)
+with the bfloat16 falloff and its cull margin, and with the tensor-core
+falloff, the mxu margin and per-warp survivor power blocks. Phase 2 holds
+each, on the plans of its phase and under both cotangents, to its gates,
+to the same rows from two launches, and times it in turns beside the
+one-CTA-per-tile body it replaced (``composite32_bwd_bf16_tile1024``,
+``composite32_bwd_mxu_tile1024``: tile1024_ms, held to the same gates),
+beside the cells it evaluates, counted from the backward walk's own stops
+(tk.plain_bwd_walk(done_at=True), equal to the forward's but under mxu);
+B2-bf16-mxu, still one CTA per tile, gets its cells counted too. Both
+yardsticks join the kernels line and the paths' forbidden launches.
+exact-pyramid-bf16 and exact-pyramid-mxu run once more, uncounted, with
+the replaced body in the sub-tile backward's place (replaced_backward),
+and report both mean errors: the all-exact pyramid carries the rows' sum
+order into the poses. A
+failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -975,15 +994,21 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             target, seed, time_plain=True, tile16=False, opa_growth=1.0,
             cot_fn=loss_cotangent, bf16=False, mxu=False):
     """The backward kernel against its plain version on one plan (B2,
-    with PR 5's design timed in turns beside it, a second launch held bit
-    for bit to the first and the cells it evaluates; under ``bf16``
-    and/or ``mxu`` B2-bf16, B2-mxu or B2-bf16-mxu on the
-    matching forward's planes with the f32 kernel's time beside it, or
-    under ``tile16`` B4 on a 16-px plan, likewise beside the
-    one-thread-per-pixel design, composite16_bwd_walk, with a second
-    launch and its cells) under ``cot_fn``'s loss cotangent and a seeded
-    one: per-column error, dL/dtau through both routes, and kernel / bound
-    times, and the plain version's unless not ``time_plain``."""
+    with the one-CTA-per-tile design timed in turns beside it, a second
+    launch held bit for bit to the first and the cells it evaluates; under
+    ``bf16`` or ``mxu`` B2-bf16 or B2-mxu likewise, beside the
+    one-CTA-per-tile body of the same falloff, on the matching forward's
+    planes with the f32 kernel's time beside it; under both B2-bf16-mxu,
+    with the cells a sub-tile body would evaluate but no yardstick; under
+    ``tile16`` B4 on a 16-px plan, beside the one-thread-per-pixel design,
+    composite16_bwd_walk, with a second launch and its cells) under
+    ``cot_fn``'s loss cotangent and a seeded one: per-column error,
+    dL/dtau through both routes (the yardstick's too), and kernel / bound
+    times, and the plain version's unless not ``time_plain``. The cells
+    follow the backward walk's own stops (plain_bwd_walk(done_at=True)),
+    which must equal the forward walk's but under mxu (its linear T
+    against the forward's log space: the pixels whose stops differ are
+    reported)."""
     tau = torch.zeros(6, device=dev, requires_grad=True)
     prep = prep_fn(tau)
     plan = make_plan(prep, w, h, cap, radius_scale=radius_scale,
@@ -1001,7 +1026,10 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             return tk16.composite16_bwd_walk(*a[:8], n_tx // 2, n_ty // 2, w,
                                              h)
     else:
-        yardstick = tk.composite32_bwd_tile1024
+        yardstick = {(False, False): tk.composite32_bwd_tile1024,
+                     (True, False): tk.composite32_bwd_bf16_tile1024,
+                     (False, True): tk.composite32_bwd_mxu_tile1024}.get(
+                         (bf16, mxu))
 
         def kernel(*a, bf16=bf16, mxu=mxu):
             return tk.composite32_bwd(*a, bf16=bf16, mxu=mxu)
@@ -1015,35 +1043,41 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
     cots = {"loss": cot_fn(planes, target),
             "seeded": (seeded[0:3], seeded[3], seeded[4])}
-    # the f32 backwards: the sub-tile kernels, B2 beside the
-    # one-CTA-per-tile design (tile1024), B4 beside the one-thread-per-
-    # pixel one (walk); the cells they evaluate follow the forward walk's
-    # stops
-    subtile = not (bf16 or mxu)
+    # the sub-tile backwards, B2, B2-bf16 and B2-mxu beside the
+    # one-CTA-per-tile bodies of their falloff (tile1024), B4 beside the
+    # one-thread-per-pixel design (walk); B2-bf16-mxu has no sub-tile body
+    # yet, only its cells are counted
+    yard = not (bf16 and mxu)
     yk = "walk" if tile16 else "tile1024"
     cull = {}
-    if subtile:
-        with torch.no_grad():
-            stop_at = tk.plain_walk(feat_c, ranges, n_tx, n_ty, w, h, False,
-                                    tile=tile, done_at=True)[3]
-            kept, rected = tk.subtile_cells(feat_c, ranges, n_tx, n_ty,
-                                            stop_at, tile=tile)
-        cull = dict(post_cull_cells=kept, rect_cells=rected)
     live = int((ranges[:, 1] - ranges[:, 0]).sum())
     recs = []
     for kind, cot in cots.items():
         args = (feat_c, ranges, *planes, *cot, n_tx, n_ty, w, h)
         torch.cuda.synchronize()
-        extra = dict(cull)
         with torch.no_grad():
             got = kernel(*args)
-            ref, walked, included = tk.plain_bwd_walk(*args, tile=tile,
-                                                      bf16=bf16, mxu=mxu)
-            if subtile:
+            ref, walked, included, stop_at = tk.plain_bwd_walk(
+                *args, tile=tile, bf16=bf16, mxu=mxu, done_at=True)
+            if yard:
                 again = kernel(*args)
                 old_rows = yardstick(*args)
         torch.cuda.synchronize()
-        if subtile:
+        if not cull:
+            # the cells the sub-tile body evaluates, from the backward
+            # walk's stops (the same under every cotangent)
+            with torch.no_grad():
+                kept, rected = tk.subtile_cells(feat_c, ranges, n_tx, n_ty,
+                                                stop_at, tile=tile, mxu=mxu,
+                                                bf16=bf16)
+                fwd_stop = tk.plain_walk(feat_c, ranges, n_tx, n_ty, w, h,
+                                         False, tile=tile, bf16=bf16,
+                                         mxu=mxu, done_at=True)[3]
+            cull = dict(post_cull_cells=kept, rect_cells=rected,
+                        stops_differing_from_forward=int(
+                            (stop_at != fwd_stop).sum()))
+        extra = dict(cull)
+        if yard:
             # warps (and B2's cluster the quarters) are summed in a fixed
             # order: a second launch gives the same rows bit for bit
             extra["repeat_bit_equal"] = bool(torch.equal(got, again))
@@ -1066,8 +1100,13 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         (dtau_p,) = torch.autograd.grad(feat, tau, ref, retain_graph=True)
         dtau_rel = float((dtau_k - dtau_p).abs().max()
                          / dtau_p.abs().max())
+        if yard:
+            (dtau_y,) = torch.autograd.grad(feat, tau, old_rows,
+                                            retain_graph=True)
+            extra[f"{yk}_dtau_rel_err"] = float(
+                (dtau_y - dtau_p).abs().max() / dtau_p.abs().max())
         with torch.no_grad():
-            if subtile:
+            if yard:
                 def old():
                     return yardstick(*args)
 
@@ -1141,12 +1180,18 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         if dtau_rel > dtau_tol:
             fail(f"{label} {name}/{kind}: dL/dtau differs by "
                  f"{dtau_rel:.3e} relative (limit {dtau_tol})")
-        if subtile and not extra["repeat_bit_equal"]:
+        if yard and not extra["repeat_bit_equal"]:
             fail(f"{label} {name}/{kind}: two launches gave different rows")
-        if subtile and extra[f"{yk}_max_col_rel_err"] > col_tol:
+        if yard and (extra[f"{yk}_max_col_rel_err"] > col_tol
+                     or extra[f"{yk}_dtau_rel_err"] > dtau_tol):
             fail(f"{label} {name}/{kind}: the earlier design ({yk}) differs "
                  f"from plain by {extra[f'{yk}_max_col_rel_err']:.3e} of "
-                 "a column's max")
+                 f"a column's max (limit {col_tol}), dL/dtau by "
+                 f"{extra[f'{yk}_dtau_rel_err']:.3e} (limit {dtau_tol})")
+        if not mxu and extra["stops_differing_from_forward"]:
+            fail(f"{label} {name}: the backward walk's stops differ from "
+                 f"the forward walk's at "
+                 f"{extra['stops_differing_from_forward']} pixels")
         if bf16 and mxu and bf16_effect <= plain_gap:
             fail(f"{label} {name}/{kind}: the bf16 products moved the rows "
                  f"by {bf16_effect:.3e}, no more than the gap to plain "
@@ -1863,17 +1908,23 @@ WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
             "composite16_bwd_walk": (tk16.composite16_bwd_walk, "launches"),
             "composite32_fwd_bf16_tile1024": (
                 tk.composite32_fwd_bf16_tile1024, "launches"),
-            "composite16_fwd_walk": (tk16.composite16_fwd_walk, "launches")}
+            "composite16_fwd_walk": (tk16.composite16_fwd_walk, "launches"),
+            "composite32_bwd_bf16_tile1024": (
+                tk.composite32_bwd_bf16_tile1024, "launches"),
+            "composite32_bwd_mxu_tile1024": (
+                tk.composite32_bwd_mxu_tile1024, "launches")}
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
                 "composite32_bwd_bf16")
 # the designs the sub-tile kernels replaced (the one-CTA-per-tile f32,
-# mxu and bf16 32x32 bodies, the one-thread-per-pixel B4 and B3), timed
-# beside them in phase 2 only: no path may launch one
+# mxu and bf16 32x32 bodies, forward and backward, the one-thread-per-
+# pixel B4 and B3), timed beside them in phase 2 only: no path may launch
+# one
 YARDSTICKS = ("composite32_fwd_tile1024", "composite32_bwd_tile1024",
               "composite32_fwd_mxu_tile1024", "composite16_bwd_walk",
-              "composite32_fwd_bf16_tile1024", "composite16_fwd_walk")
+              "composite32_fwd_bf16_tile1024", "composite16_fwd_walk",
+              "composite32_bwd_bf16_tile1024", "composite32_bwd_mxu_tile1024")
 
 
 def count_of(name):
@@ -1911,6 +1962,27 @@ class uncounted:
     def __exit__(self, *exc):
         for n, (fn, attr) in WRAPPERS.items():
             setattr(fn, attr, self.saved[n])
+
+
+class replaced_backward:
+    """Inside the block the 32x32 backward under bf16 alone or mxu alone
+    runs the one-CTA-per-tile body the sub-tile kernel replaced
+    (composite32_bwd_bf16_tile1024, composite32_bwd_mxu_tile1024), as the
+    renderer looks composite32_bwd up at each call."""
+
+    def __enter__(self):
+        self.bwd = bwd = tk.composite32_bwd
+
+        @functools.wraps(bwd)  # its counters too, which the wrapper bumps
+        def old_design(*a, bf16=False, mxu=False):
+            if bf16 != mxu:
+                return (tk.composite32_bwd_mxu_tile1024 if mxu
+                        else tk.composite32_bwd_bf16_tile1024)(*a)
+            return bwd(*a, bf16=bf16, mxu=mxu)
+        tk.composite32_bwd = old_design
+
+    def __exit__(self, *exc):
+        tk.composite32_bwd = self.bwd
 
 
 def check_path(name, rec, max_err_m=1e-3):
@@ -2552,7 +2624,8 @@ def run(dev):
         print(f"build {name}: {rec['seconds']:.3f} s -> {rec['path']}",
               flush=True)
         for line in rec["ptxas"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if ("registers" in line or "spill" in line or "smem" in line
+                    or "Compiling entry" in line):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     gm = gmap.from_numpy(**make_room_map(N_ROOM, np.random.default_rng(0)),
@@ -2702,6 +2775,18 @@ def run(dev):
                           reps=reps, **track_kw)
         launches[name] = read_counts(name, required, forbidden=(
             "composite32_fwd", "composite32_bwd"))
+        if name in ("exact-pyramid-bf16", "exact-pyramid-mxu"):
+            # the same schedule on the backward design the sub-tile kernel
+            # replaced: 20 all-exact iterations a frame carry the rows' sum
+            # order into the poses (reported, not gated)
+            with uncounted(), replaced_backward():
+                old = run_schedule(f"{name}-tile1024-bwd", dev, gm, cam, gts,
+                                   poses, kw, gt_overflow, reps=1,
+                                   **track_kw)
+            print(f"{name}: mean error {rb['pose_err_mean_m'] * 1e3:.4f} mm "
+                  f"on the sub-tile backward, "
+                  f"{old['pose_err_mean_m'] * 1e3:.4f} mm on the design it "
+                  "replaced", flush=True)
         kw = {k: v for k, v in kw.items()
               if k not in ("kernel_bf16", "kernel_mxu")}
         with uncounted():
@@ -2859,17 +2944,22 @@ def run(dev):
             nt_mismatch=c["nt_mismatch"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
             f32_ms=c["f32_ms"], shape=c["shape"], **subtile_keys(c)))
-    c = next(c for c in b2_bf16_cases if c["case"] == "room_s1_polish_bf16"
-             and c["cotangent"] == "loss")
+    # B2-bf16 (sub-tile, the bf16 margin) with the one-CTA-per-tile bf16
+    # design's time on the same plan (tile1024_ms) and the cells it
+    # evaluates
+    b2_bf16 = c = next(c for c in b2_bf16_cases
+                       if c["case"] == "room_s1_polish_bf16"
+                       and c["cotangent"] == "loss")
     kernels.append(dict(
         name="composite32_bwd_bf16", route="cuda",
-        source=csrc + "tile_kernel2_bwd.cu",
+        source=csrc + "tile32_bwd_subtile.cu",
         replaces=f"{pallas}:699 (bf16=True, :488-508)",
         launches=total["composite32_bwd_bf16"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-        bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
-        library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
+        bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
+        shape=c["shape"], repeat_bit_equal=c["repeat_bit_equal"],
+        **subtile_keys(c)))
     # the mxu variants likewise: the s=2 tracker plan (forward: the
     # sub-tile mxu kernel, with the one-CTA-per-tile mxu design's time
     # and the cells as for B1') and the s=1 polish plan (backward, loss
@@ -2896,20 +2986,34 @@ def run(dev):
             vs_tile1024_max_abs_diff=c["vs_tile1024_max_abs_diff"],
             vs_tile1024_values_differing=c["vs_tile1024_values_differing"],
             **subtile_keys(c)))
+    # B2-mxu (sub-tile, the mxu margin) with the one-CTA-per-tile mxu
+    # design's time on the same plan and the cells it evaluates; B2-bf16-
+    # mxu (still one CTA per tile) with the cells a sub-tile body with the
+    # mxu margin would evaluate, from its backward walk's stops
+    b2_mxu = {}
     for name, case in (("composite32_bwd_mxu", "room_s1_polish_mxu"),
                        ("composite32_bwd_bf16_mxu",
                         "room_s1_polish_bf16_mxu")):
-        c = next(c for c in b2_mxu_cases if c["case"] == case
-                 and c["cotangent"] == "loss")
+        c = b2_mxu[name] = next(c for c in b2_mxu_cases if c["case"] == case
+                                and c["cotangent"] == "loss")
+        both = "bf16" in name
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile_kernel2_bwd.cu",
+            name=name, route="cuda",
+            source=csrc + ("tile_kernel2_bwd.cu" if both
+                           else "tile32_bwd_subtile.cu"),
             replaces=f"{pallas}:699 (mxu=True, :387-398"
-                     + (", bf16 :488-508)" if "bf16" in name else ")"),
+                     + (", bf16 :488-508)" if both else ")"),
             launches=total[name], max_abs_err=c["max_abs_err"],
             max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], walk_bound_ms=c["walk_bound_ms"],
-            library_ms=None, f32_ms=c["f32_ms"], shape=c["shape"]))
+            bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
+            shape=c["shape"],
+            **(dict(post_cull_cells=c["post_cull_cells"],
+                    rect_cells=c["rect_cells"],
+                    tile_walk_cells=c["walked_cells"],
+                    walk_bound_ms=c["walk_bound_ms"]) if both
+               else dict(repeat_bit_equal=c["repeat_bit_equal"],
+                         **subtile_keys(c)))))
     # the yardsticks: the designs the sub-tile kernels replaced, on the
     # same plans in the same calls, launched by no path (launches 0)
     f32_fwd = pick(False)
@@ -2933,7 +3037,14 @@ def run(dev):
              bf16_fwd[False]["tile1024_ms"]),
             ("composite16_fwd_walk", b3[False], "tile_kernel16_fwd.cu",
              f"{pallas16}:582", b3[False]["walk_max_abs_err"],
-             b3[False]["walk_ms"])):
+             b3[False]["walk_ms"]),
+            ("composite32_bwd_bf16_tile1024", b2_bf16, "tile_kernel2_bwd.cu",
+             f"{pallas}:699 (bf16=True)", b2_bf16["tile1024_max_abs_err"],
+             b2_bf16["tile1024_ms"]),
+            ("composite32_bwd_mxu_tile1024", b2_mxu["composite32_bwd_mxu"],
+             "tile_kernel2_bwd.cu", f"{pallas}:699 (mxu=True)",
+             b2_mxu["composite32_bwd_mxu"]["tile1024_max_abs_err"],
+             b2_mxu["composite32_bwd_mxu"]["tile1024_ms"])):
         kernels.append(dict(
             name=name, route="cuda", source=csrc + src,
             replaces=line + " (yardstick)", launches=total[name],

@@ -1,7 +1,7 @@
-// What the sub-tile backward kernels (tile32_bwd_subtile.cu,
-// tile16_bwd_subtile.cu) share: a pixel's forward sums and cotangents, the
-// backward walk's step at one (pair, pixel) cell, and a warp's sums of a
-// pair's ten gradient values over its 32 pixels.
+// What the sub-tile backward kernels (tile32_bwd_subtile.cu's B2, B2-bf16
+// and B2-mxu, tile16_bwd_subtile.cu's B4) share: a pixel's forward sums
+// and cotangents, the backward walk's step at one (pair, pixel) cell, and
+// a warp's sums of a pair's ten gradient values over its 32 pixels.
 //
 // The cell (reference backward.cu:648-872, the one-pass form of
 // tile_kernel2.py:456-467 and tile_kernel16.py:383-391): the forward's
@@ -13,11 +13,23 @@
 // through G = a_un / opa to the five quadratic-form terms, d_opa, d_rgb
 // and d_depth. Built with -fmad=false, so it rounds as the plain version
 // (ops/tile_kernel2.py::plain_bwd_walk) does.
+//
+// The cell's falloff axis (kBF16, kMXU), as the one-CTA-per-tile bodies of
+// tile_kernel2_bwd.cu have it: f32, the direct f32 power and f32
+// products; kBF16, the bfloat16 falloff (bf16_falloff::power and ::a_un)
+// and the five quadratic-form products formed in bfloat16
+// (bf16_falloff::quad_grads), each widened; kMXU, the power comes in from
+// the caller's tensor-core power block (clamped to <= 0) and a_un = opa
+// expf(power) in f32, while the transmittance stays the linear
+// T (1 - alpha) and dx, dy of the products the direct mx - x, my - y
+// (under kBF16 as well, the products are the bfloat16 ones). d_opa, d_rgb
+// and d_depth stay f32 under every flag.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "bf16_falloff.cuh"
 #include "subtile_cull.cuh"
 
 namespace subtile {
@@ -54,11 +66,15 @@ __device__ __forceinline__ PixelCot pixel_cot(
 // ca, cb | cc, opa, r, g | b, depth, rect) and pixel (px, py) whose
 // transmittance, prefix and done flag are *T, *pA, *done: v gets the
 // cell's ten gradient values (zero unless included), and the return
-// value says whether the pixel included the pair.
+// value says whether the pixel included the pair. Under kMXU
+// ``power_mxu`` is the cell's clamped tensor-core power (read only where
+// the pixel is not done).
+template <bool kBF16 = false, bool kMXU = false>
 __device__ __forceinline__ bool bwd_cell(const float4* row, float px,
                                          float py, const PixelCot& k,
                                          float* T, float* pA, bool* done,
-                                         float v[kRows]) {
+                                         float v[kRows],
+                                         float power_mxu = 0.0f) {
 #pragma unroll
   for (int j = 0; j < kRows; ++j) v[j] = 0.0f;
   if (*done) return false;
@@ -67,10 +83,21 @@ __device__ __forceinline__ bool bwd_cell(const float4* row, float px,
   const float4 f2 = row[2];  // b, depth, rect x0, rect y0
   const float dx = f0.x - px;
   const float dy = f0.y - py;
-  const float power =
-      -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
+  float power;
+  if constexpr (kMXU) {
+    power = power_mxu;
+  } else if constexpr (kBF16) {
+    power = bf16_falloff::power(dx, dy, f0.z, f0.w, f1.x);
+  } else {
+    power = -0.5f * (f0.z * dx * dx + f1.x * dy * dy) - f0.w * dx * dy;
+  }
   if (!(power <= 0.0f)) return false;
-  const float a_un = f1.y * expf(power);
+  float a_un;
+  if constexpr (kBF16 && !kMXU) {
+    a_un = bf16_falloff::a_un(f1.y, power);
+  } else {
+    a_un = f1.y * expf(power);
+  }
   const float alpha = fminf(kAlphaMax, a_un);
   if (!(alpha >= kAlphaMin)) return false;
   const float T_incl = *T * (1.0f - alpha);
@@ -85,15 +112,19 @@ __device__ __forceinline__ bool bwd_cell(const float4* row, float px,
   const float dLda = A * *T - inv_om * (k.c0 - *pA);
   const float G = a_un / fmaxf(f1.y, 1e-12f);
   const float dLdG = f1.y * dLda;
-  const float gdx = G * dx;
-  const float gdy = G * dy;
-  const float dG_ddx = -gdx * f0.z - gdy * f0.w;
-  const float dG_ddy = -gdy * f1.x - gdx * f0.w;
-  v[0] = dLdG * dG_ddx;
-  v[1] = dLdG * dG_ddy;
-  v[2] = dLdG * (-0.5f * gdx * dx);
-  v[3] = dLdG * (-gdx * dy);
-  v[4] = dLdG * (-0.5f * gdy * dy);
+  if constexpr (kBF16) {
+    bf16_falloff::quad_grads(G, dx, dy, dLdG, f0.z, f0.w, f1.x, v);
+  } else {
+    const float gdx = G * dx;
+    const float gdy = G * dy;
+    const float dG_ddx = -gdx * f0.z - gdy * f0.w;
+    const float dG_ddy = -gdy * f1.x - gdx * f0.w;
+    v[0] = dLdG * dG_ddx;
+    v[1] = dLdG * dG_ddy;
+    v[2] = dLdG * (-0.5f * gdx * dx);
+    v[3] = dLdG * (-gdx * dy);
+    v[4] = dLdG * (-0.5f * gdy * dy);
+  }
   v[5] = G * dLda;
   v[6] = w * k.dCr;
   v[7] = w * k.dCg;

@@ -1,4 +1,15 @@
-// 32x32 alpha-compositing backward for Hopper (sm_90a).
+// 32x32 alpha-compositing backward for Hopper (sm_90a): the one-CTA-per-
+// tile design.
+//
+// Which of its C entries still run on a path: only
+// composite32_bwd_bf16_mxu (B2-bf16-mxu, the mxu falloff with the
+// bfloat16 products). The others are yardsticks, launched by no path and
+// timed by chip_smoke.py in turns beside the sub-tile kernels that
+// replaced them (tile32_bwd_subtile.cu, one body with a falloff axis):
+// composite32_bwd_tile1024 (the f32 body, replaced by composite32_bwd),
+// composite32_bwd_bf16_tile1024 and composite32_bwd_mxu_tile1024 (the
+// bf16 and mxu bodies, replaced by composite32_bwd_bf16 and
+// composite32_bwd_mxu).
 //
 // Replaces the Pallas TPU kernel
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py
@@ -284,15 +295,15 @@ int launch(const void* feat, const void* ranges, const void* color,
 
 }  // namespace
 
-// C entries, loaded with ctypes: composite32_bwd_tile1024 (f32: this
-// design's f32 body, which the C entry composite32_bwd of
-// tile32_bwd_subtile.cu replaced; kept as a yardstick that only
-// chip_smoke.py times on the same plans), composite32_bwd_bf16 (the
-// bfloat16 bodies), composite32_bwd_mxu (the
-// tensor-core falloff) and composite32_bwd_bf16_mxu (the tensor-core
-// falloff with the bfloat16 gradient products). feat: (B_al, 16) f32,
-// 16-byte aligned; ranges: (n_tiles, 2) int32; color, d_color: (3, H, W)
-// f32; depth, final_T, d_depth, d_T: (H, W) f32; dfeat: (B_al, 16) f32,
+// C entries, loaded with ctypes: the yardsticks composite32_bwd_tile1024
+// (this design's f32 body), composite32_bwd_bf16_tile1024 (its bfloat16
+// body) and composite32_bwd_mxu_tile1024 (its tensor-core falloff), which
+// only chip_smoke.py and tests/test_torch_cuda.py launch, on the same
+// plans as the sub-tile kernels that replaced them; and
+// composite32_bwd_bf16_mxu (the tensor-core falloff with the bfloat16
+// gradient products), still on the paths. feat: (B_al, 16) f32, 16-byte
+// aligned; ranges: (n_tiles, 2) int32; color, d_color: (3, H, W) f32;
+// depth, final_T, d_depth, d_T: (H, W) f32; dfeat: (B_al, 16) f32,
 // zero-filled by the caller (rows a tile never reaches must read 0).
 // Launch on ``stream`` and return cudaGetLastError().
 #define BWD_ENTRY(NAME, BF16, MXU)                                          \
@@ -307,6 +318,6 @@ int launch(const void* feat, const void* ranges, const void* color,
   }
 
 BWD_ENTRY(composite32_bwd_tile1024, false, false)
-BWD_ENTRY(composite32_bwd_bf16, true, false)
-BWD_ENTRY(composite32_bwd_mxu, false, true)
+BWD_ENTRY(composite32_bwd_bf16_tile1024, true, false)
+BWD_ENTRY(composite32_bwd_mxu_tile1024, false, true)
 BWD_ENTRY(composite32_bwd_bf16_mxu, true, true)

@@ -46,7 +46,9 @@ LIBRARIES = {
     "tile32_fwd_subtile_mxu": ("tile32_fwd_subtile_mxu.cu",
                                {"composite32_fwd_mxu": _FWD_ARGS}),
     "tile32_bwd_subtile": ("tile32_bwd_subtile.cu",
-                           {"composite32_bwd": _BWD_ARGS}),
+                           {"composite32_bwd": _BWD_ARGS,
+                            "composite32_bwd_bf16": _BWD_ARGS,
+                            "composite32_bwd_mxu": _BWD_ARGS}),
     "tile_kernel2_fwd": ("tile_kernel2_fwd.cu",
                          {"composite32_fwd_tile1024": _FWD_ARGS,
                           "composite32_fwd_bf16_tile1024": _FWD_ARGS,
@@ -55,8 +57,8 @@ LIBRARIES = {
                                              _VP]}),
     "tile_kernel2_bwd": ("tile_kernel2_bwd.cu",
                          {"composite32_bwd_tile1024": _BWD_ARGS,
-                          "composite32_bwd_bf16": _BWD_ARGS,
-                          "composite32_bwd_mxu": _BWD_ARGS,
+                          "composite32_bwd_bf16_tile1024": _BWD_ARGS,
+                          "composite32_bwd_mxu_tile1024": _BWD_ARGS,
                           "composite32_bwd_bf16_mxu": _BWD_ARGS}),
     "tile16_fwd_subtile": ("tile16_fwd_subtile.cu",
                            {"composite16_fwd": _FWD_ARGS}),

@@ -38,12 +38,14 @@ and the backward's bf16 branch, :488-508), which the trackers run under
 ``csrc/tile32_fwd_subtile.cu``) with the bfloat16 falloff and a block
 test whose margin covers its rounding (``block_keep_plain(...,
 bf16=True)``); the one-CTA-per-tile bf16 forward it replaced stays as the
-yardstick ``composite32_fwd_bf16_tile1024``. The bf16 backward is still
-the one-CTA-per-tile kernel of ``csrc/tile_kernel2_bwd.cu``. The
-falloff is evaluated in bfloat16 from f32 pixel deltas, every product and
-sum rounded to bfloat16 in the expression's order, the power clamped to
-<= 0, ``opa * exp(power)`` rounded once more and widened; transmittance
-and the sums stay f32. The backward rounds G, dx, dy and dL/dG to
+yardstick ``composite32_fwd_bf16_tile1024``. The bf16 backward is the
+f32 backward's sub-tile body with the same falloff and margin (C entry
+``composite32_bwd_bf16`` of ``csrc/tile32_bwd_subtile.cu``); the
+one-CTA-per-tile bf16 backward it replaced stays as the yardstick
+``composite32_bwd_bf16_tile1024``. The falloff is evaluated in bfloat16
+from f32 pixel deltas, every product and sum rounded to bfloat16 in the
+expression's order, the power clamped to <= 0, ``opa * exp(power)``
+rounded once more and widened; transmittance and the sums stay f32. The backward rounds G, dx, dy and dL/dG to
 bfloat16 and forms the quadratic-form products in bfloat16, each widened
 before its f32 pixel sum. The bf16 kernels are separate C entries with
 launch counters of their own (``launches_bf16``); the plain versions take
@@ -66,11 +68,15 @@ bfloat16 gradient products. The mxu kernels are the C entries
 ``composite32_fwd_mxu`` (``csrc/tile32_fwd_subtile_mxu.cu``: the f32
 forward's sub-tile layout, the block test with a margin for the tensor
 cores' rounding, ``block_keep_plain(..., centre=)``),
-``composite32_bwd_mxu`` and ``composite32_bwd_bf16_mxu``, counted in
-``launches_mxu`` (the backward under both flags in
-``launches_bf16_mxu``); the one-CTA-per-tile mxu forward the sub-tile one
-replaced stays as the yardstick ``composite32_fwd_mxu_tile1024``. Their
-plain versions evaluate
+``composite32_bwd_mxu`` (the f32 backward's sub-tile body in
+``csrc/tile32_bwd_subtile.cu``: per-warp survivor lists and power blocks
+as in the mxu forward, the mxu margin, the linear transmittance) and
+``composite32_bwd_bf16_mxu`` (still the one-CTA-per-tile kernel of
+``csrc/tile_kernel2_bwd.cu``), counted in ``launches_mxu`` (the backward
+under both flags in ``launches_bf16_mxu``); the one-CTA-per-tile mxu
+forward and backward the sub-tile ones replaced stay as the yardsticks
+``composite32_fwd_mxu_tile1024`` and ``composite32_bwd_mxu_tile1024``.
+Their plain versions evaluate
 the power with ``torch.matmul`` at float32 matmul precision "highest"
 (never TF32; they raise otherwise), as the reference's dot runs at
 ``Precision.HIGHEST``.
@@ -518,12 +524,13 @@ def subtile_cells(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                   mxu: bool = False, bf16: bool = False,
                   batch: int = 1 << 17) -> Tuple[int, int]:
     """The (pair, pixel) cells the sub-tile kernels evaluate on a plan of
-    ``tile``-px tiles (32: B1/B1', under ``bf16`` B1-bf16/B1'-bf16 and
-    under ``mxu`` B1-mxu/B1'-mxu, whose block tests carry the margin of
-    their falloff; 16: B3/B3' and B4), from ``plain_walk(...,
-    done_at=True)``'s ``stop_at`` (of the walk of the same body): (after
-    the rect16 compaction and the block test, after the rect16 compaction
-    alone). A warp's 8x4 block
+    ``tile``-px tiles (32: B1/B1' and B2, under ``bf16`` B1-bf16/B1'-bf16
+    and B2-bf16 and under ``mxu`` B1-mxu/B1'-mxu and B2-mxu, whose block
+    tests carry the margin of their falloff; 16: B3/B3' and B4), from the
+    ``stop_at`` of ``plain_walk(..., done_at=True)`` (the forwards) or
+    ``plain_bwd_walk(..., done_at=True)`` (the backwards) of the same
+    body: (after the rect16 compaction and the block test, after the
+    rect16 compaction alone). A warp's 8x4 block
     walks chunk c of SUB_CHUNK pair rows of its tile's run if one of its
     pixels is not done at the chunk's start (its stop offset >= c *
     SUB_CHUNK), and then evaluates 32 cells for each pair of the chunk that
@@ -812,8 +819,7 @@ def _to_tiles(img: torch.Tensor, n_tx: int, n_ty: int, tile: int
 def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
                    d_depth, d_T, n_tx: int, n_ty: int, W: int, H: int,
                    tile: int = TPX, bf16: bool = False, mxu: bool = False,
-                   cull: bool = False
-                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                   cull: bool = False, done_at: bool = False) -> tuple:
     """Plain PyTorch backward of the compositing over square tiles of edge
     ``tile`` (32 for B2, 16 for B4). Returns (dfeat (B_al, 16),
     pairs_walked per tile, the count of included (pair, pixel) cells).
@@ -835,14 +841,18 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
     dy and dL/dG rounded to bfloat16, each widened before its sum. Under
     ``mxu`` (32x32 only) the falloff is ``_mxu_power`` and a_un = opa
     exp(power) in f32; the walk, the linear transmittance and the products
-    (bfloat16 ones too under ``bf16``) stay. ``cull`` (f32, either tile
-    size) skips every cell whose (pair, 8x4 block) ``block_keep_plain``
-    drops, as the sub-tile kernels do; the rows are the same as without
-    it."""
+    (bfloat16 ones too under ``bf16``) stay. ``cull`` skips every cell
+    whose (pair, 8x4 block) ``block_keep_plain`` drops, as the sub-tile
+    kernels do, with the margin of the walk's falloff (under ``bf16``
+    ``bf16=True``, under ``mxu`` the 32x32 tile's ``centre``); a culled
+    cell adds exact zeros, so the rows are the same as without it.
+    ``done_at`` appends a fourth result as ``plain_walk``'s: for each
+    pixel the offset in its tile's run of the pair at which this walk was
+    done (-1 outside the image, 2^62 where it never was). Under ``mxu``
+    that is where the linear T falls below 1e-4, which can differ from the
+    mxu forward's log-space stop; otherwise it equals ``plain_walk``'s."""
     if mxu and tile != TPX:
         raise ValueError("mxu is a body of the 32x32 kernels only")
-    if cull and (mxu or bf16):
-        raise ValueError("cull is an option of the f32 walk only")
     dev = feat.device
     f32 = torch.float32
     chunk = PLAIN_CHUNK
@@ -855,6 +865,7 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
     n_pix = tile * tile
     if cull:
         xb, yb = _pixel_blocks(n_tx, n_ty, dev, tile)
+    stop_at = torch.where(pix_in, 1 << 62, -1)
 
     fwd = _to_tiles(torch.cat([color_sum, depth_sum[None], final_T[None]]),
                     n_tx, n_ty, tile)                          # (T, 5, P)
@@ -890,7 +901,8 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
         dx = mx - px_s
         dy = my - py_s
         if mxu:
-            power = _mxu_power(f, px_s, py_s, *_tile_centres(sel, n_tx))
+            centre = _tile_centres(sel, n_tx)
+            power = _mxu_power(f, px_s, py_s, *centre)
             a_un = opa * torch.exp(power)
         else:
             power, a_un = _falloff(ca, cb, cc, opa, dx, dy, bf16)
@@ -901,10 +913,13 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
         ok = (row_ok[..., None] & rect_ok & (power <= 0.0)
               & (alpha >= ALPHA_MIN))                          # (S, k, P)
         if cull:
-            ok &= block_keep_plain(f[..., None, :], xb[sel], yb[sel])
+            ok &= block_keep_plain(f[..., None, :], xb[sel], yb[sel],
+                                   centre=centre if mxu else None,
+                                   bf16=bf16 and not mxu)
         G_all = a_un / torch.clamp(opa, min=1e-12)
 
         T_s, done_s, pA_s = T[sel], done[sel], pA[sel]
+        stop_s = stop_at[sel]
         cot_s, c0_s = cot[sel], c0[sel]
         acc = torch.zeros(sel.numel(), chunk, N_ROWS, dtype=f32, device=dev)
         for k in range(chunk):
@@ -949,9 +964,12 @@ def plain_bwd_walk(feat, ranges, color_sum, depth_sum, final_T, d_color,
             acc[:, k] = vals.sum(dim=-1)
             T_s = torch.where(inc, T_incl, T_s)
             done_s = done_s | term
+            stop_s = torch.where(term, c * chunk + k, stop_s)
         T[sel], done[sel], pA[sel] = T_s, done_s, pA_s
+        stop_at[sel] = stop_s
         dfeat[idx[row_ok], :N_ROWS] = acc[row_ok]
-    return dfeat, walked, included
+    return (dfeat, walked, included, stop_at) if done_at else \
+        (dfeat, walked, included)
 
 
 def composite32_bwd_plain(feat, ranges, color_sum, depth_sum, final_T,
@@ -983,8 +1001,13 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
     """Per-pair gradient rows (B_al, 16) from the forward's planes
     (color_sum (3,H,W) before background, depth_sum, final_T) and their
     cotangents; the bfloat16 bodies under ``bf16``, the MXU falloff under
-    ``mxu`` (with the bfloat16 products under both). Rows the kernel never
-    writes keep the zero they were allocated with."""
+    ``mxu`` (with the bfloat16 products under both). The f32, bf16 and
+    mxu bodies are the sub-tile kernel of ``csrc/tile32_bwd_subtile.cu``
+    (C entries ``composite32_bwd``, ``composite32_bwd_bf16``,
+    ``composite32_bwd_mxu``; one body, the block test with the margin of
+    each falloff); under both flags it is the one-CTA-per-tile
+    ``composite32_bwd_bf16_mxu`` of ``csrc/tile_kernel2_bwd.cu``. Rows the
+    kernel never writes keep the zero they were allocated with."""
     _check(feat, ranges, n_tx, n_ty)
     _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
                   final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
@@ -993,11 +1016,32 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
                                      final_T, d_color, d_depth, d_T, n_tx,
                                      n_ty, W, H, bf16=bf16, mxu=mxu)
     suffix = _variant(bf16, mxu)
-    dfeat = launch_bwd("tile_kernel2_bwd" if suffix else "tile32_bwd_subtile",
-                       feat, ranges, color_sum, depth_sum, final_T, d_color,
-                       d_depth, d_T, n_tx, n_ty, W, H,
+    lib = "tile_kernel2_bwd" if suffix == "_bf16_mxu" else "tile32_bwd_subtile"
+    dfeat = launch_bwd(lib, feat, ranges, color_sum, depth_sum, final_T,
+                       d_color, d_depth, d_T, n_tx, n_ty, W, H,
                        "composite32_bwd" + suffix)
     _count(composite32_bwd, suffix)
+    return dfeat
+
+
+def _bwd_tile1024(wrapper, entry: str, bf16: bool, mxu: bool, feat, ranges,
+                  color_sum, depth_sum, final_T, d_color, d_depth, d_T,
+                  n_tx: int, n_ty: int, W: int, H: int) -> torch.Tensor:
+    """A yardstick backward of the one-CTA-per-tile design: C entry
+    ``entry`` of ``csrc/tile_kernel2_bwd.cu``, counted in ``wrapper``'s
+    ``launches``; the plain version of the ``bf16`` / ``mxu`` body on the
+    CPU."""
+    _check(feat, ranges, n_tx, n_ty)
+    _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
+                  final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
+    if feat.device.type == "cpu":
+        return composite32_bwd_plain(feat, ranges, color_sum, depth_sum,
+                                     final_T, d_color, d_depth, d_T, n_tx,
+                                     n_ty, W, H, bf16=bf16, mxu=mxu)
+    dfeat = launch_bwd("tile_kernel2_bwd", feat, ranges, color_sum,
+                       depth_sum, final_T, d_color, d_depth, d_T, n_tx, n_ty,
+                       W, H, entry)
+    wrapper.launches += 1
     return dfeat
 
 
@@ -1011,18 +1055,46 @@ def composite32_bwd_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
     kernel replaced (``csrc/tile_kernel2_bwd.cu``, C entry
     ``composite32_bwd_tile1024``): a yardstick timed beside
     ``composite32_bwd`` on the same plans, launched by no path."""
-    _check(feat, ranges, n_tx, n_ty)
-    _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
-                  final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
-    if feat.device.type == "cpu":
-        return composite32_bwd_plain(feat, ranges, color_sum, depth_sum,
-                                     final_T, d_color, d_depth, d_T, n_tx,
-                                     n_ty, W, H)
-    dfeat = launch_bwd("tile_kernel2_bwd", feat, ranges, color_sum,
-                       depth_sum, final_T, d_color, d_depth, d_T, n_tx, n_ty,
-                       W, H, "composite32_bwd_tile1024")
-    composite32_bwd_tile1024.launches += 1
-    return dfeat
+    return _bwd_tile1024(composite32_bwd_tile1024, "composite32_bwd_tile1024",
+                         False, False, feat, ranges, color_sum, depth_sum,
+                         final_T, d_color, d_depth, d_T, n_tx, n_ty, W, H)
+
+
+def composite32_bwd_bf16_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
+                                  color_sum: torch.Tensor,
+                                  depth_sum: torch.Tensor,
+                                  final_T: torch.Tensor,
+                                  d_color: torch.Tensor,
+                                  d_depth: torch.Tensor, d_T: torch.Tensor,
+                                  n_tx: int, n_ty: int, W: int, H: int
+                                  ) -> torch.Tensor:
+    """The bf16 backward of the one-CTA-per-tile design that the sub-tile
+    kernel replaced (``csrc/tile_kernel2_bwd.cu``, C entry
+    ``composite32_bwd_bf16_tile1024``): a yardstick timed beside
+    ``composite32_bwd(bf16=True)`` on the same plans, launched by no
+    path."""
+    return _bwd_tile1024(composite32_bwd_bf16_tile1024,
+                         "composite32_bwd_bf16_tile1024", True, False, feat,
+                         ranges, color_sum, depth_sum, final_T, d_color,
+                         d_depth, d_T, n_tx, n_ty, W, H)
+
+
+def composite32_bwd_mxu_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
+                                 color_sum: torch.Tensor,
+                                 depth_sum: torch.Tensor,
+                                 final_T: torch.Tensor, d_color: torch.Tensor,
+                                 d_depth: torch.Tensor, d_T: torch.Tensor,
+                                 n_tx: int, n_ty: int, W: int, H: int
+                                 ) -> torch.Tensor:
+    """The mxu backward of the one-CTA-per-tile design that the sub-tile
+    kernel replaced (``csrc/tile_kernel2_bwd.cu``, C entry
+    ``composite32_bwd_mxu_tile1024``): a yardstick timed beside
+    ``composite32_bwd(mxu=True)`` on the same plans, launched by no
+    path."""
+    return _bwd_tile1024(composite32_bwd_mxu_tile1024,
+                         "composite32_bwd_mxu_tile1024", False, True, feat,
+                         ranges, color_sum, depth_sum, final_T, d_color,
+                         d_depth, d_T, n_tx, n_ty, W, H)
 
 
 def launch_bwd(lib: str, feat, ranges, color_sum, depth_sum, final_T,
@@ -1055,6 +1127,8 @@ composite32_bwd.launches_bf16 = 0
 composite32_bwd.launches_mxu = 0
 composite32_bwd.launches_bf16_mxu = 0
 composite32_bwd_tile1024.launches = 0
+composite32_bwd_bf16_tile1024.launches = 0
+composite32_bwd_mxu_tile1024.launches = 0
 
 
 class CompositeFn(torch.autograd.Function):

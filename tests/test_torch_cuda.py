@@ -564,6 +564,52 @@ def test_subtile_backward16_matches_plain_on_hard_plan(cuda):
     assert torch.equal(got.any(dim=1), ref.any(dim=1))
 
 
+@pytest.mark.parametrize("bf16,mxu", [(True, False), (False, True)])
+def test_subtile_bf16_mxu_backward_matches_plain_on_hard_plan(cuda, bf16,
+                                                             mxu):
+    """B2-bf16 and B2-mxu (B2's sub-tile body with the bfloat16 falloff and
+    its margin, or the tensor-core falloff and the mxu margin) and the
+    one-CTA-per-tile bodies they replaced (the
+    composite32_bwd_bf16_tile1024 / composite32_bwd_mxu_tile1024
+    yardsticks) against the plain version of the same body: each column
+    within 1e-5 (bf16, chip_smoke.py BWD_COL_TOL) or 1e-3 (mxu,
+    MXU_BWD_COL_TOL) of its max, and bit for bit the same rows from two
+    launches of the sub-tile kernel. Under bf16 the zero rows are plain's
+    (rows at alpha = 1/255 to an ulp included); under mxu those rows are
+    left out and the zero rows not compared, as in the mxu forward's test:
+    the tensor cores' power and the plain matmul's differ by rounding."""
+    feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda, at_threshold=not mxu)
+    fwd = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H,
+                               with_ntouch=False, bf16=bf16, mxu=mxu)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    cot = torch.randn(5, H, W, generator=g, device=cuda)
+    args = (feat, ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
+            cot[0:3], cot[3], cot[4], n_tx, n_ty, W, H)
+    yardstick = (tk.composite32_bwd_mxu_tile1024 if mxu
+                 else tk.composite32_bwd_bf16_tile1024)
+    attr = "launches_mxu" if mxu else "launches_bf16"
+    before = (getattr(tk.composite32_bwd, attr), yardstick.launches)
+    got = tk.composite32_bwd(*args, bf16=bf16, mxu=mxu)
+    again = tk.composite32_bwd(*args, bf16=bf16, mxu=mxu)
+    old = yardstick(*args)
+    ref = tk.composite32_bwd_plain(*args, bf16=bf16, mxu=mxu)
+    torch.cuda.synchronize()
+    assert (getattr(tk.composite32_bwd, attr), yardstick.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(got, again)
+    tol = 1e-3 if mxu else 1e-5
+    for rows in (got, old):
+        assert bool(torch.isfinite(rows).all())
+        assert not bool(rows[:, 10:].any())
+        for col in range(10):
+            scale = float(ref[:, col].abs().max())
+            assert scale > 0, col
+            err = float((rows[:, col] - ref[:, col]).abs().max())
+            assert err <= tol * scale, (col, err / scale)
+        if not mxu:
+            assert torch.equal(rows.any(dim=1), ref.any(dim=1))
+
+
 @pytest.mark.parametrize("with_ntouch,nt_weight",
                          [(False, False), (True, False), (True, True)])
 def test_subtile_mxu_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
