@@ -177,12 +177,22 @@ one-CTA-per-tile body it replaced (``composite32_bwd_bf16_tile1024``,
 ``composite32_bwd_mxu_tile1024``: tile1024_ms, held to the same gates),
 beside the cells it evaluates, counted from the backward walk's own stops
 (tk.plain_bwd_walk(done_at=True), equal to the forward's but under mxu);
-B2-bf16-mxu, still one CTA per tile, gets its cells counted too. Both
-yardsticks join the kernels line and the paths' forbidden launches.
-exact-pyramid-bf16 and exact-pyramid-mxu run once more, uncounted, with
-the replaced body in the sub-tile backward's place (replaced_backward),
-and report both mean errors: the all-exact pyramid carries the rows' sum
-order into the poses. A
+B2-bf16-mxu got its cells counted too. Both yardsticks join the kernels
+line and the paths' forbidden launches. exact-pyramid-bf16 and
+exact-pyramid-mxu run once more, uncounted, with the replaced body in
+the sub-tile backward's place (replaced_backward), and report both mean
+errors: the all-exact pyramid carries the rows' sum order into the
+poses.
+
+The slice after those: B2-bf16-mxu (C entry composite32_bwd_bf16_mxu) is
+the same sub-tile body with the mxu falloff and the bfloat16 products,
+held to the same gates and timed in turns beside the one-CTA-per-tile
+body it replaced (``composite32_bwd_bf16_mxu_tile1024``, a yardstick like
+the others; exact-pyramid-bf16-mxu also runs once more on it). B5 runs
+one CTA per 16x16 subtile; its first design (one CTA per 32x32 group,
+the ``abl16_<variant>_group`` entries, ``design="group"``) is a
+yardstick, held to the same 1e-5 gate and to the new design's output bit
+for bit, and timed in turns beside it (group_ms, vs_group). A
 failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
@@ -996,10 +1006,9 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     """The backward kernel against its plain version on one plan (B2,
     with the one-CTA-per-tile design timed in turns beside it, a second
     launch held bit for bit to the first and the cells it evaluates; under
-    ``bf16`` or ``mxu`` B2-bf16 or B2-mxu likewise, beside the
-    one-CTA-per-tile body of the same falloff, on the matching forward's
-    planes with the f32 kernel's time beside it; under both B2-bf16-mxu,
-    with the cells a sub-tile body would evaluate but no yardstick; under
+    ``bf16``, ``mxu`` or both B2-bf16, B2-mxu or B2-bf16-mxu likewise,
+    beside the one-CTA-per-tile body of the same falloff, on the matching
+    forward's planes with the f32 kernel's time beside it; under
     ``tile16`` B4 on a 16-px plan, beside the one-thread-per-pixel design,
     composite16_bwd_walk, with a second launch and its cells) under
     ``cot_fn``'s loss cotangent and a seeded one: per-column error,
@@ -1028,8 +1037,9 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     else:
         yardstick = {(False, False): tk.composite32_bwd_tile1024,
                      (True, False): tk.composite32_bwd_bf16_tile1024,
-                     (False, True): tk.composite32_bwd_mxu_tile1024}.get(
-                         (bf16, mxu))
+                     (False, True): tk.composite32_bwd_mxu_tile1024,
+                     (True, True): tk.composite32_bwd_bf16_mxu_tile1024}[
+                         (bf16, mxu)]
 
         def kernel(*a, bf16=bf16, mxu=mxu):
             return tk.composite32_bwd(*a, bf16=bf16, mxu=mxu)
@@ -1043,11 +1053,9 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
     cots = {"loss": cot_fn(planes, target),
             "seeded": (seeded[0:3], seeded[3], seeded[4])}
-    # the sub-tile backwards, B2, B2-bf16 and B2-mxu beside the
-    # one-CTA-per-tile bodies of their falloff (tile1024), B4 beside the
-    # one-thread-per-pixel design (walk); B2-bf16-mxu has no sub-tile body
-    # yet, only its cells are counted
-    yard = not (bf16 and mxu)
+    # the sub-tile backwards, B2, B2-bf16, B2-mxu and B2-bf16-mxu beside
+    # the one-CTA-per-tile bodies of their falloff (tile1024), B4 beside the
+    # one-thread-per-pixel design (walk)
     yk = "walk" if tile16 else "tile1024"
     cull = {}
     live = int((ranges[:, 1] - ranges[:, 0]).sum())
@@ -1059,9 +1067,8 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             got = kernel(*args)
             ref, walked, included, stop_at = tk.plain_bwd_walk(
                 *args, tile=tile, bf16=bf16, mxu=mxu, done_at=True)
-            if yard:
-                again = kernel(*args)
-                old_rows = yardstick(*args)
+            again = kernel(*args)
+            old_rows = yardstick(*args)
         torch.cuda.synchronize()
         if not cull:
             # the cells the sub-tile body evaluates, from the backward
@@ -1077,15 +1084,14 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
                         stops_differing_from_forward=int(
                             (stop_at != fwd_stop).sum()))
         extra = dict(cull)
-        if yard:
-            # warps (and B2's cluster the quarters) are summed in a fixed
-            # order: a second launch gives the same rows bit for bit
-            extra["repeat_bit_equal"] = bool(torch.equal(got, again))
-            extra[f"{yk}_max_abs_err"] = float((old_rows - ref).abs().max())
-            extra[f"{yk}_max_col_rel_err"] = max(
-                float((old_rows[:, c] - ref[:, c]).abs().max())
-                / max(float(ref[:, c].abs().max()), 1e-30)
-                for c in range(tk.N_ROWS))
+        # warps (and B2's cluster the quarters) are summed in a fixed
+        # order: a second launch gives the same rows bit for bit
+        extra["repeat_bit_equal"] = bool(torch.equal(got, again))
+        extra[f"{yk}_max_abs_err"] = float((old_rows - ref).abs().max())
+        extra[f"{yk}_max_col_rel_err"] = max(
+            float((old_rows[:, c] - ref[:, c]).abs().max())
+            / max(float(ref[:, c].abs().max()), 1e-30)
+            for c in range(tk.N_ROWS))
         col_rel = []
         for c in range(tk.N_ROWS):
             scale = float(ref[:, c].abs().max())
@@ -1100,26 +1106,22 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         (dtau_p,) = torch.autograd.grad(feat, tau, ref, retain_graph=True)
         dtau_rel = float((dtau_k - dtau_p).abs().max()
                          / dtau_p.abs().max())
-        if yard:
-            (dtau_y,) = torch.autograd.grad(feat, tau, old_rows,
-                                            retain_graph=True)
-            extra[f"{yk}_dtau_rel_err"] = float(
-                (dtau_y - dtau_p).abs().max() / dtau_p.abs().max())
+        (dtau_y,) = torch.autograd.grad(feat, tau, old_rows,
+                                        retain_graph=True)
+        extra[f"{yk}_dtau_rel_err"] = float(
+            (dtau_y - dtau_p).abs().max() / dtau_p.abs().max())
         with torch.no_grad():
-            if yard:
-                def old():
-                    return yardstick(*args)
+            def old():
+                return yardstick(*args)
 
-                def new():
-                    return kernel(*args)
-                # in turns: the earlier design, the new kernel twice, the
-                # earlier one again
-                turns = [time_ms(f) for f in (old, new, new, old)]
-                ms = (turns[1] + turns[2]) / 2
-                extra.update({f"{yk}_ms": (turns[0] + turns[3]) / 2,
-                              "turns_ms": turns})
-            else:
-                ms = time_ms(lambda: kernel(*args))
+            def new():
+                return kernel(*args)
+            # in turns: the earlier design, the new kernel twice, the
+            # earlier one again
+            turns = [time_ms(f) for f in (old, new, new, old)]
+            ms = (turns[1] + turns[2]) / 2
+            extra.update({f"{yk}_ms": (turns[0] + turns[3]) / 2,
+                          "turns_ms": turns})
             plain_ms = (time_ms(lambda: tk.plain_bwd_walk(
                 *args, tile=tile, bf16=bf16, mxu=mxu),
                 reps=3 if bf16 or mxu else 7, warm=1)
@@ -1180,10 +1182,10 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         if dtau_rel > dtau_tol:
             fail(f"{label} {name}/{kind}: dL/dtau differs by "
                  f"{dtau_rel:.3e} relative (limit {dtau_tol})")
-        if yard and not extra["repeat_bit_equal"]:
+        if not extra["repeat_bit_equal"]:
             fail(f"{label} {name}/{kind}: two launches gave different rows")
-        if yard and (extra[f"{yk}_max_col_rel_err"] > col_tol
-                     or extra[f"{yk}_dtau_rel_err"] > dtau_tol):
+        if (extra[f"{yk}_max_col_rel_err"] > col_tol
+                or extra[f"{yk}_dtau_rel_err"] > dtau_tol):
             fail(f"{label} {name}/{kind}: the earlier design ({yk}) differs "
                  f"from plain by {extra[f'{yk}_max_col_rel_err']:.3e} of "
                  f"a column's max (limit {col_tol}), dL/dtau by "
@@ -1599,29 +1601,50 @@ def render_mxu_path(dev, gm, cam, poses):
 
 
 def phase_abl16(dev):
-    """B5: each variant of csrc/abl16.cu against its plain version at a
-    small shape (4 x 3 groups) on the script's plan and on a plan whose
-    rect16 columns admit every cell (1e-5 relative), then the script's
-    own run (scripts/abl16.py's main: 1216x704, NC=2) with the launch
-    counts from 0: per variant ms, us/chunk, the bound, and the plain
-    version's time at that shape."""
+    """B5: each variant of csrc/abl16.cu (one CTA per 16x16 subtile) and
+    its yardstick, the first port's design (one CTA per 32x32 group,
+    ``design="group"``), against the plain version at a small shape (4 x 3
+    groups) on the script's plan and on a plan whose rect16 columns admit
+    every cell (1e-5 relative; the two designs bit for bit), then the
+    script's own run (scripts/abl16.py's main: 1216x704, NC=2) with the
+    launch counts from 0 (the launches line), then, uncounted, each
+    variant in turns against its yardstick (group, subtile, subtile,
+    group): per variant ms and group_ms (the means of each design's
+    turns), vs_group, us/chunk, the bound and its share of each time, the
+    errors at the script's shape and the plain version's time there."""
     recs = {}
+
+    def rel_err(a, b):
+        return float(((a - b).abs() / b.abs()).max())
+
     for v in abl16.VARIANTS:
-        rel = err = 0.0
+        rel = err = group_rel = group_err = 0.0
+        same = True
         for make, nc in ((abl16.make_inputs, 1),
                          (abl16.make_admitting_inputs, 2)):
             feat, ranges = make(4, 3, nc, device=dev)
             got = abl16.run(feat, ranges, 4, 3, 128, 96, nc, v)
+            old = abl16.run(feat, ranges, 4, 3, 128, 96, nc, v,
+                            design="group")
             ref = abl16.run_plain(feat, ranges, 4, 3, 128, 96, nc, v)
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all()):
+            if not bool(torch.isfinite(got).all() & torch.isfinite(old)
+                        .all()):
                 fail(f"abl16_{v}: non-finite output")
-            rel = max(rel, float(((got - ref).abs() / ref.abs()).max()))
+            rel = max(rel, rel_err(got, ref))
+            group_rel = max(group_rel, rel_err(old, ref))
             err = max(err, float((got - ref).abs().max()))
-        recs[v] = dict(max_rel_err=rel, max_abs_err=err)
-        if not rel <= 1e-5:
+            group_err = max(group_err, float((old - ref).abs().max()))
+            same = same and bool(torch.equal(got, old))
+        recs[v] = dict(max_rel_err=rel, max_abs_err=err,
+                       group_max_rel_err=group_rel,
+                       group_max_abs_err=group_err, group_bit_equal=same)
+        if not rel <= 1e-5 or not group_rel <= 1e-5:
             fail(f"abl16_{v}: kernel differs from plain by {rel:.3e} "
-                 "relative (limit 1e-5)")
+                 f"relative, its group design by {group_rel:.3e} (limit "
+                 "1e-5)")
+        if not same:
+            fail(f"abl16_{v}: the subtile and group designs differ")
     sh = abl16.SHAPE
     n_gx, n_gy, w, h = sh["n_gx"], sh["n_gy"], sh["W"], sh["H"]
     nc = 2
@@ -1629,29 +1652,56 @@ def phase_abl16(dev):
     chunks = 4 * n_gx * n_gy * nc
     # the script's run (its main), launch counts from 0
     abl16.run.launches = {v: 0 for v in abl16.VARIANTS}
+    abl16.run.launches_group = {v: 0 for v in abl16.VARIANTS}
     for v in abl16.VARIANTS:
-        ms = time_ms(lambda: abl16.run(feat, ranges, n_gx, n_gy, w, h, nc,
-                                       v))
-        bnd, by = abl16.bound_ms(ranges, n_gx, n_gy, nc, v)
-        recs[v].update(ms=ms, us_per_chunk=ms * 1e3 / chunks, bound_ms=bnd,
-                       bound_by=by)
+        recs[v]["script_ms"] = time_ms(lambda: abl16.run(
+            feat, ranges, n_gx, n_gy, w, h, nc, v))
     launches = dict(abl16.run.launches)
+    group_launches = dict(abl16.run.launches_group)
     for v in abl16.VARIANTS:
+        t = abl16.time_turns(feat, ranges, n_gx, n_gy, w, h, nc, v)
+        bnd, by = abl16.bound_ms(ranges, n_gx, n_gy, nc, v)
+        recs[v].update(
+            ms=t["ms"], group_ms=t["group_ms"], turns_ms=t["turns_ms"],
+            vs_group=t["ms"] / t["group_ms"],
+            us_per_chunk=t["ms"] * 1e3 / chunks,
+            group_us_per_chunk=t["group_ms"] * 1e3 / chunks, bound_ms=bnd,
+            bound_by=by, bound_pct=100.0 * bnd / t["ms"],
+            group_bound_pct=100.0 * bnd / t["group_ms"])
         with torch.no_grad():
             got = abl16.run(feat, ranges, n_gx, n_gy, w, h, nc, v)
+            old = abl16.run(feat, ranges, n_gx, n_gy, w, h, nc, v,
+                            design="group")
             ref = abl16.run_plain(feat, ranges, n_gx, n_gy, w, h, nc, v)
-            recs[v]["max_rel_err_script_shape"] = float(
-                ((got - ref).abs() / ref.abs()).max())
+            recs[v]["max_rel_err_script_shape"] = rel_err(got, ref)
+            recs[v]["group_max_rel_err_script_shape"] = rel_err(old, ref)
+            recs[v]["group_bit_equal_script_shape"] = bool(
+                torch.equal(got, old))
         recs[v]["plain_ms"] = time_ms(lambda: abl16.run_plain(
             feat, ranges, n_gx, n_gy, w, h, nc, v), reps=1, warm=1)
         recs[v]["launches"] = launches[v]
-        if recs[v]["max_rel_err_script_shape"] > 1e-5:
+        recs[v]["group_launches"] = group_launches[v]
+        if max(recs[v]["max_rel_err_script_shape"],
+               recs[v]["group_max_rel_err_script_shape"]) > 1e-5:
             fail(f"abl16_{v}: at the script's shape the kernel differs from "
-                 f"plain by {recs[v]['max_rel_err_script_shape']:.3e}")
-        print(f"abl16 {v:9s} {recs[v]['ms']:8.3f} ms "
-              f"{recs[v]['us_per_chunk']:7.3f} us/chunk  bound "
-              f"{recs[v]['bound_ms']:.3f} ms ({recs[v]['bound_by']})  plain "
-              f"{recs[v]['plain_ms']:.1f} ms", flush=True)
+                 f"plain by {recs[v]['max_rel_err_script_shape']:.3e}, its "
+                 "group design by "
+                 f"{recs[v]['group_max_rel_err_script_shape']:.3e}")
+        if not recs[v]["group_bit_equal_script_shape"]:
+            fail(f"abl16_{v}: at the script's shape the subtile and group "
+                 "designs differ")
+        if launches[v] == 0 or group_launches[v]:
+            fail(f"abl16_{v}: the script's run launched the kernel "
+                 f"{launches[v]} times and the group design "
+                 f"{group_launches[v]} times")
+        r = recs[v]
+        print(f"abl16 {v:9s} {r['ms']:8.3f} ms {r['us_per_chunk']:7.3f} "
+              f"us/chunk  group {r['group_ms']:8.3f} ms "
+              f"{r['group_us_per_chunk']:7.3f} us/chunk  vs_group "
+              f"{r['vs_group']:.3f}  bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}; {r['bound_pct']:.1f}% / "
+              f"{r['group_bound_pct']:.1f}%)  plain {r['plain_ms']:.1f} ms",
+              flush=True)
     print("abl16 " + json.dumps(dict(shape=f"{w}x{h}", chunks=chunks,
                                      variants=recs, card=card_line())),
           flush=True)
@@ -1912,19 +1962,22 @@ WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
             "composite32_bwd_bf16_tile1024": (
                 tk.composite32_bwd_bf16_tile1024, "launches"),
             "composite32_bwd_mxu_tile1024": (
-                tk.composite32_bwd_mxu_tile1024, "launches")}
+                tk.composite32_bwd_mxu_tile1024, "launches"),
+            "composite32_bwd_bf16_mxu_tile1024": (
+                tk.composite32_bwd_bf16_mxu_tile1024, "launches")}
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
                 "composite32_bwd_bf16")
 # the designs the sub-tile kernels replaced (the one-CTA-per-tile f32,
-# mxu and bf16 32x32 bodies, forward and backward, the one-thread-per-
-# pixel B4 and B3), timed beside them in phase 2 only: no path may launch
-# one
+# mxu and bf16 32x32 bodies, forward and backward, and the backward with
+# both, the one-thread-per-pixel B4 and B3), timed beside them in phase 2
+# only: no path may launch one
 YARDSTICKS = ("composite32_fwd_tile1024", "composite32_bwd_tile1024",
               "composite32_fwd_mxu_tile1024", "composite16_bwd_walk",
               "composite32_fwd_bf16_tile1024", "composite16_fwd_walk",
-              "composite32_bwd_bf16_tile1024", "composite32_bwd_mxu_tile1024")
+              "composite32_bwd_bf16_tile1024", "composite32_bwd_mxu_tile1024",
+              "composite32_bwd_bf16_mxu_tile1024")
 
 
 def count_of(name):
@@ -1965,20 +2018,23 @@ class uncounted:
 
 
 class replaced_backward:
-    """Inside the block the 32x32 backward under bf16 alone or mxu alone
-    runs the one-CTA-per-tile body the sub-tile kernel replaced
-    (composite32_bwd_bf16_tile1024, composite32_bwd_mxu_tile1024), as the
-    renderer looks composite32_bwd up at each call."""
+    """Inside the block the 32x32 backward under bf16, mxu or both runs
+    the one-CTA-per-tile body the sub-tile kernel replaced
+    (composite32_bwd_bf16_tile1024, composite32_bwd_mxu_tile1024,
+    composite32_bwd_bf16_mxu_tile1024), as the renderer looks
+    composite32_bwd up at each call."""
 
     def __enter__(self):
         self.bwd = bwd = tk.composite32_bwd
 
         @functools.wraps(bwd)  # its counters too, which the wrapper bumps
         def old_design(*a, bf16=False, mxu=False):
-            if bf16 != mxu:
-                return (tk.composite32_bwd_mxu_tile1024 if mxu
-                        else tk.composite32_bwd_bf16_tile1024)(*a)
-            return bwd(*a, bf16=bf16, mxu=mxu)
+            if bf16 or mxu:
+                return {(True, False): tk.composite32_bwd_bf16_tile1024,
+                        (False, True): tk.composite32_bwd_mxu_tile1024,
+                        (True, True): tk.composite32_bwd_bf16_mxu_tile1024}[
+                            (bf16, mxu)](*a)
+            return bwd(*a)
         tk.composite32_bwd = old_design
 
     def __exit__(self, *exc):
@@ -2775,7 +2831,7 @@ def run(dev):
                           reps=reps, **track_kw)
         launches[name] = read_counts(name, required, forbidden=(
             "composite32_fwd", "composite32_bwd"))
-        if name in ("exact-pyramid-bf16", "exact-pyramid-mxu"):
+        if name.startswith("exact-pyramid-"):
             # the same schedule on the backward design the sub-tile kernel
             # replaced: 20 all-exact iterations a frame carry the rows' sum
             # order into the poses (reported, not gated)
@@ -2986,34 +3042,25 @@ def run(dev):
             vs_tile1024_max_abs_diff=c["vs_tile1024_max_abs_diff"],
             vs_tile1024_values_differing=c["vs_tile1024_values_differing"],
             **subtile_keys(c)))
-    # B2-mxu (sub-tile, the mxu margin) with the one-CTA-per-tile mxu
-    # design's time on the same plan and the cells it evaluates; B2-bf16-
-    # mxu (still one CTA per tile) with the cells a sub-tile body with the
-    # mxu margin would evaluate, from its backward walk's stops
+    # B2-mxu and B2-bf16-mxu (sub-tile, the mxu margin) with the
+    # one-CTA-per-tile design's time for the same falloff on the same plan
+    # and the cells each evaluates
     b2_mxu = {}
     for name, case in (("composite32_bwd_mxu", "room_s1_polish_mxu"),
                        ("composite32_bwd_bf16_mxu",
                         "room_s1_polish_bf16_mxu")):
         c = b2_mxu[name] = next(c for c in b2_mxu_cases if c["case"] == case
                                 and c["cotangent"] == "loss")
-        both = "bf16" in name
         kernels.append(dict(
-            name=name, route="cuda",
-            source=csrc + ("tile_kernel2_bwd.cu" if both
-                           else "tile32_bwd_subtile.cu"),
+            name=name, route="cuda", source=csrc + "tile32_bwd_subtile.cu",
             replaces=f"{pallas}:699 (mxu=True, :387-398"
-                     + (", bf16 :488-508)" if both else ")"),
+                     + (", bf16 :488-508)" if "bf16" in name else ")"),
             launches=total[name], max_abs_err=c["max_abs_err"],
             max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
-            shape=c["shape"],
-            **(dict(post_cull_cells=c["post_cull_cells"],
-                    rect_cells=c["rect_cells"],
-                    tile_walk_cells=c["walked_cells"],
-                    walk_bound_ms=c["walk_bound_ms"]) if both
-               else dict(repeat_bit_equal=c["repeat_bit_equal"],
-                         **subtile_keys(c)))))
+            shape=c["shape"], repeat_bit_equal=c["repeat_bit_equal"],
+            **subtile_keys(c)))
     # the yardsticks: the designs the sub-tile kernels replaced, on the
     # same plans in the same calls, launched by no path (launches 0)
     f32_fwd = pick(False)
@@ -3044,25 +3091,44 @@ def run(dev):
             ("composite32_bwd_mxu_tile1024", b2_mxu["composite32_bwd_mxu"],
              "tile_kernel2_bwd.cu", f"{pallas}:699 (mxu=True)",
              b2_mxu["composite32_bwd_mxu"]["tile1024_max_abs_err"],
-             b2_mxu["composite32_bwd_mxu"]["tile1024_ms"])):
+             b2_mxu["composite32_bwd_mxu"]["tile1024_ms"]),
+            ("composite32_bwd_bf16_mxu_tile1024",
+             b2_mxu["composite32_bwd_bf16_mxu"], "tile_kernel2_bwd.cu",
+             f"{pallas}:699 (mxu=True, bf16=True)",
+             b2_mxu["composite32_bwd_bf16_mxu"]["tile1024_max_abs_err"],
+             b2_mxu["composite32_bwd_bf16_mxu"]["tile1024_ms"])):
         kernels.append(dict(
             name=name, route="cuda", source=csrc + src,
             replaces=line + " (yardstick)", launches=total[name],
             max_abs_err=err, ms=ms, plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
             shape=c["shape"]))
-    # B5: one entry per variant, at the script's shape; launches from the
-    # script's own run (phase_abl16)
+    # B5: one entry per variant, at the script's shape (ms and group_ms
+    # in turns); launches from the script's own run (phase_abl16); then
+    # the yardsticks, the first port's design (launched by no run)
     for v, r in abl.items():
         kernels.append(dict(
             name=f"abl16_{v}", route="cuda", source=csrc + "abl16.cu",
             replaces="scripts/abl16.py:237 (make_kernel :55, "
                      f"variant {v})", launches=r["launches"],
             max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
-            ms=r["ms"],
-            us_per_chunk=r["us_per_chunk"], plain_ms=r["plain_ms"],
+            ms=r["ms"], us_per_chunk=r["us_per_chunk"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None, shape="1216x704",
+            group_ms=r["group_ms"], vs_group=r["vs_group"],
+            bound_pct=r["bound_pct"]))
+    for v, r in abl.items():
+        kernels.append(dict(
+            name=f"abl16_{v}_group", route="cuda", source=csrc + "abl16.cu",
+            replaces="scripts/abl16.py:237 (make_kernel :55, "
+                     f"variant {v}; yardstick)",
+            launches=r["group_launches"],
+            max_abs_err=r["group_max_abs_err"],
+            max_rel_err=r["group_max_rel_err"],
+            bit_equal_to_subtile=r["group_bit_equal"], ms=r["group_ms"],
+            us_per_chunk=r["group_us_per_chunk"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            shape="1216x704"))
+            shape="1216x704", bound_pct=r["group_bound_pct"]))
     print(f"launches by path: {json.dumps(launches)}", flush=True)
     check_failures()
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,18 @@
 // 32x32 alpha-compositing backward for Hopper (sm_90a), on 16x16
 // sub-tile CTAs joined in clusters of four, with per-warp conservative
-// culling and asynchronous staging: one body, three falloffs (B2, B2-bf16,
-// B2-mxu).
+// culling and asynchronous staging: one body, four falloffs (B2, B2-bf16,
+// B2-mxu, B2-bf16-mxu).
 //
 // Replaces the Pallas TPU kernel
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py
 //   ::make_backward_kernel (reached through _bwd_impl, pallas_call at :699)
 // in its f32 body (C entry composite32_bwd), its bf16 body (bf16=True,
 // :488-508, the falloff of _chunk_terms :160-175; C entry
-// composite32_bwd_bf16) and its MXU body (mxu=True, :387-398; C entry
-// composite32_bwd_mxu), with the per-pair output of tile_kernel2_bwd.cu
+// composite32_bwd_bf16), its MXU body (mxu=True, :387-398; C entry
+// composite32_bwd_mxu) and the two together (mxu=True, bf16=True: the MXU
+// falloff, which takes precedence over bf16's (:157-159), with the bf16
+// gradient products; C entry composite32_bwd_bf16_mxu), with the per-pair
+// output of tile_kernel2_bwd.cu
 // (reference backward.cu:648-872): for every pair row of feat walked by
 // its 32x32 tile, the row
 //   [d_mx, d_my, d_ca, d_cb, d_cc, d_opa, d_r, d_g, d_b, d_depth, 0 x 6]
@@ -34,7 +37,9 @@
 //   expf(power) in f32; the transmittance stays the linear T (1 - alpha)
 //   as the reference's backward scans it (_scan_mul, :447-449), not the
 //   forward's log space, and dx, dy of the products the direct mx - x,
-//   my - y (:386-390).
+//   my - y (:386-390);
+// - bf16 and mxu: the mxu body with bf16's quad_grads for the five
+//   products.
 //
 // What bounds it on the H100: the FP32 operations of the cells a pixel
 // evaluates (under bf16 also the conversions and the bfloat16 roundings,
@@ -42,7 +47,8 @@
 // passes a power block), and the per-pair reduction. The designs it
 // replaced (one CTA of 1024 threads per tile, kept in tile_kernel2_bwd.cu
 // as the yardstick C entries composite32_bwd_tile1024 (f32),
-// composite32_bwd_bf16_tile1024 and composite32_bwd_mxu_tile1024)
+// composite32_bwd_bf16_tile1024, composite32_bwd_mxu_tile1024 and
+// composite32_bwd_bf16_mxu_tile1024)
 // recomputed the tests at every cell of the 32x32 tile-walk (7.9%
 // included on the s=1 polish plan; under mxu a power block for every 16
 // consecutive pairs), reduced every pair any lane of a warp included with
@@ -54,12 +60,13 @@
 //   warp an 8x4 block of pixels that walks, in pair order, only the pairs
 //   the conservative block test keeps, with the margin of its falloff
 //   (f32: kCullRel / kCullAbs; bf16: block_keep<true>, kCullBf16Rel /
-//   kCullBf16Abs; mxu: prepare_mxu's kCullMxu Mmag for the 32x32 tile's
-//   centre). The backward recomputes exactly the falloff, the tests and
-//   the transmittance step those margins were derived for, so a culled
-//   (pair, block) has alpha < 1/255 at every pixel there: its cells
-//   contribute exact zeros and leave T and pA as they were. A warp whose
-//   pixels are all done skips the chunk;
+//   kCullBf16Abs; mxu, alone or with bf16: prepare_mxu's kCullMxu Mmag for
+//   the 32x32 tile's centre, since the falloff is the mxu one and bf16
+//   rounds only the products). The backward recomputes exactly the
+//   falloff, the tests and the transmittance step those margins were
+//   derived for, so a culled (pair, block) has alpha < 1/255 at every
+//   pixel there: its cells contribute exact zeros and leave T and pA as
+//   they were. A warp whose pixels are all done skips the chunk;
 // - under mxu the warp walks its survivors as the mxu forward does
 //   (tile32_fwd_subtile_mxu.cu): a survivor list in pair order, an A
 //   operand of the next 16 survivors' G8 rows copied from the chunk's G8
@@ -96,12 +103,13 @@
 // reserved a CTA): the f32 and bf16 bodies take 36,008 bytes of static
 // shared memory (rows 8 KB, block-test terms 2 KB, warp partials 20 KB,
 // cluster sums 5 KB), so their registers (__launch_bounds__(256, 4): at
-// most 64 a thread) allow 4 CTAs an SM. The mxu body adds 31,264 bytes
-// of dynamic shared memory, opted into at the first launch
-// (mxu_falloff::opt_in_smem): the chunk's G8 table 2 KB and per warp its
-// A operand 0.5 KB, P8 1 KB, power block 2 KB and survivor list 64
-// bytes, and 32 bytes to align them. 67,272 bytes a CTA leave room for 3
-// CTAs an SM (24 warps against the f32 body's 32), so its launch bounds
+// most 64 a thread) allow 4 CTAs an SM. The mxu bodies (mxu alone and
+// with bf16) add 31,264 bytes of dynamic shared memory, opted into at the
+// first launch (mxu_falloff::opt_in_smem): the chunk's G8 table 2 KB and
+// per warp its A operand 0.5 KB, P8 1 KB, power block 2 KB and survivor
+// list 64 bytes, and 32 bytes to align them. 67,272 bytes a CTA leave
+// room for 3
+// CTAs an SM (24 warps against the f32 body's 32), so their launch bounds
 // ask for 3 (at most 85 registers a thread). A cluster of four such CTAs
 // spans at most four SMs of one GPC.
 
@@ -427,7 +435,8 @@ int launch(const void* feat, const void* ranges, const void* color,
 }  // namespace
 
 // C entries, loaded with ctypes: composite32_bwd (f32, B2),
-// composite32_bwd_bf16 (B2-bf16) and composite32_bwd_mxu (B2-mxu). feat:
+// composite32_bwd_bf16 (B2-bf16), composite32_bwd_mxu (B2-mxu) and
+// composite32_bwd_bf16_mxu (B2-bf16-mxu). feat:
 // (B_al, 16) f32, 16-byte aligned; ranges: (n_tiles, 2) int32; color,
 // d_color: (3, H, W) f32; depth, final_T, d_depth, d_T: (H, W) f32;
 // dfeat: (B_al, 16) f32, zero-filled by the caller (rows a tile never
@@ -447,3 +456,4 @@ int launch(const void* feat, const void* ranges, const void* color,
 BWD_ENTRY(composite32_bwd, false, false)
 BWD_ENTRY(composite32_bwd_bf16, true, false)
 BWD_ENTRY(composite32_bwd_mxu, false, true)
+BWD_ENTRY(composite32_bwd_bf16_mxu, true, true)

@@ -1,15 +1,15 @@
 // 32x32 alpha-compositing backward for Hopper (sm_90a): the one-CTA-per-
 // tile design.
 //
-// Which of its C entries still run on a path: only
-// composite32_bwd_bf16_mxu (B2-bf16-mxu, the mxu falloff with the
-// bfloat16 products). The others are yardsticks, launched by no path and
-// timed by chip_smoke.py in turns beside the sub-tile kernels that
-// replaced them (tile32_bwd_subtile.cu, one body with a falloff axis):
-// composite32_bwd_tile1024 (the f32 body, replaced by composite32_bwd),
-// composite32_bwd_bf16_tile1024 and composite32_bwd_mxu_tile1024 (the
-// bf16 and mxu bodies, replaced by composite32_bwd_bf16 and
-// composite32_bwd_mxu).
+// None of its C entries runs on a path. All four are yardsticks, launched
+// by no path and timed by chip_smoke.py in turns beside the sub-tile
+// kernels that replaced them (tile32_bwd_subtile.cu, one body with a
+// falloff axis): composite32_bwd_tile1024 (the f32 body, replaced by
+// composite32_bwd), composite32_bwd_bf16_tile1024 and
+// composite32_bwd_mxu_tile1024 (the bf16 and mxu bodies, replaced by
+// composite32_bwd_bf16 and composite32_bwd_mxu) and
+// composite32_bwd_bf16_mxu_tile1024 (the mxu falloff with the bfloat16
+// products, replaced by composite32_bwd_bf16_mxu).
 //
 // Replaces the Pallas TPU kernel
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py
@@ -62,24 +62,24 @@
 // pixel sum; d_opa, d_rgb and d_depth stay f32. Its bound is counted as
 // the f32 kernel's (no bf16x2 packing; the conversions add operations).
 //
-// The mxu variants (C entries composite32_bwd_mxu and
-// composite32_bwd_bf16_mxu) replace the same call site with mxu=True
-// (make_backward_kernel :387-398): only the falloff changes. Per chunk of
-// 32 pair rows, 32 threads write the G8 rows to shared memory and each
-// warp takes its pixels' powers from the tensor cores, 16 pairs at a time
-// (mxu_falloff.cuh, three TF32 WMMA passes, clamped to <= 0; 2 KB of power block and
-// 1 KB of P8 a warp, 97 KB of dynamic shared memory a CTA with the G8
-// rows). Everything else is B2's walk: the recomputed transmittance stays
-// the linear product T (1 - alpha), as the reference's backward scans it
-// (_scan_mul, :447-449), not the forward's log space; T_final and the
-// other forward planes come from the mxu forward; dx, dy of the gradient
-// products stay the direct mx - x, my - y (:386-390); a_un = opa
-// expf(power) in f32. Under bf16 as well (composite32_bwd_bf16_mxu) the
-// quadratic-form products are bf16_falloff.cuh's rounded ones: the
-// reference's _chunk_terms gives mxu_ctx precedence over bf16 for the
-// falloff (:157-159) while the products' bf16 branch (:488-508) still
-// runs. Bound: as B2, plus the tensor-core term (3 x 2 x 8 FLOP a walked
-// cell) at the TF32 peak.
+// The mxu variants (C entries composite32_bwd_mxu_tile1024 and
+// composite32_bwd_bf16_mxu_tile1024) replace the same call site with
+// mxu=True (make_backward_kernel :387-398): only the falloff changes.
+// Per chunk of 32 pair rows, 32 threads write the G8 rows to shared memory
+// and each warp takes its pixels' powers from the tensor cores, 16 pairs at
+// a time (mxu_falloff.cuh, three TF32 WMMA passes, clamped to <= 0; 2 KB of
+// power block and 1 KB of P8 a warp, 97 KB of dynamic shared memory a CTA
+// with the G8 rows). Everything else is B2's walk: the recomputed
+// transmittance stays the linear product T (1 - alpha), as the reference's
+// backward scans it (_scan_mul, :447-449), not the forward's log space;
+// T_final and the other forward planes come from the mxu forward; dx, dy of
+// the gradient products stay the direct mx - x, my - y (:386-390); a_un =
+// opa expf(power) in f32. Under bf16 as well
+// (composite32_bwd_bf16_mxu_tile1024) the quadratic-form products are
+// bf16_falloff.cuh's rounded ones: the reference's _chunk_terms gives
+// mxu_ctx precedence over bf16 for the falloff (:157-159) while the
+// products' bf16 branch (:488-508) still runs. Bound: as B2, plus the
+// tensor-core term (3 x 2 x 8 FLOP a walked cell) at the TF32 peak.
 
 #include <cuda_runtime.h>
 
@@ -297,11 +297,11 @@ int launch(const void* feat, const void* ranges, const void* color,
 
 // C entries, loaded with ctypes: the yardsticks composite32_bwd_tile1024
 // (this design's f32 body), composite32_bwd_bf16_tile1024 (its bfloat16
-// body) and composite32_bwd_mxu_tile1024 (its tensor-core falloff), which
-// only chip_smoke.py and tests/test_torch_cuda.py launch, on the same
-// plans as the sub-tile kernels that replaced them; and
-// composite32_bwd_bf16_mxu (the tensor-core falloff with the bfloat16
-// gradient products), still on the paths. feat: (B_al, 16) f32, 16-byte
+// body), composite32_bwd_mxu_tile1024 (its tensor-core falloff) and
+// composite32_bwd_bf16_mxu_tile1024 (the tensor-core falloff with the
+// bfloat16 gradient products), which only chip_smoke.py and
+// tests/test_torch_cuda.py launch, on the same plans as the sub-tile
+// kernels that replaced them. feat: (B_al, 16) f32, 16-byte
 // aligned; ranges: (n_tiles, 2) int32; color, d_color: (3, H, W) f32;
 // depth, final_T, d_depth, d_T: (H, W) f32; dfeat: (B_al, 16) f32,
 // zero-filled by the caller (rows a tile never reaches must read 0).
@@ -320,4 +320,4 @@ int launch(const void* feat, const void* ranges, const void* color,
 BWD_ENTRY(composite32_bwd_tile1024, false, false)
 BWD_ENTRY(composite32_bwd_bf16_tile1024, true, false)
 BWD_ENTRY(composite32_bwd_mxu_tile1024, false, true)
-BWD_ENTRY(composite32_bwd_bf16_mxu, true, true)
+BWD_ENTRY(composite32_bwd_bf16_mxu_tile1024, true, true)

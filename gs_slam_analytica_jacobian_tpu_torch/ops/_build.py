@@ -48,7 +48,8 @@ LIBRARIES = {
     "tile32_bwd_subtile": ("tile32_bwd_subtile.cu",
                            {"composite32_bwd": _BWD_ARGS,
                             "composite32_bwd_bf16": _BWD_ARGS,
-                            "composite32_bwd_mxu": _BWD_ARGS}),
+                            "composite32_bwd_mxu": _BWD_ARGS,
+                            "composite32_bwd_bf16_mxu": _BWD_ARGS}),
     "tile_kernel2_fwd": ("tile_kernel2_fwd.cu",
                          {"composite32_fwd_tile1024": _FWD_ARGS,
                           "composite32_fwd_bf16_tile1024": _FWD_ARGS,
@@ -59,7 +60,7 @@ LIBRARIES = {
                          {"composite32_bwd_tile1024": _BWD_ARGS,
                           "composite32_bwd_bf16_tile1024": _BWD_ARGS,
                           "composite32_bwd_mxu_tile1024": _BWD_ARGS,
-                          "composite32_bwd_bf16_mxu": _BWD_ARGS}),
+                          "composite32_bwd_bf16_mxu_tile1024": _BWD_ARGS}),
     "tile16_fwd_subtile": ("tile16_fwd_subtile.cu",
                            {"composite16_fwd": _FWD_ARGS}),
     "tile_kernel16_fwd": ("tile_kernel16_fwd.cu",
@@ -68,9 +69,9 @@ LIBRARIES = {
                            {"composite16_bwd": _BWD_ARGS}),
     "tile_kernel16_bwd": ("tile_kernel16_bwd.cu",
                           {"composite16_bwd_walk": _BWD_ARGS}),
-    "abl16": ("abl16.cu", {f"abl16_{v}": _ABL16_ARGS for v in (
+    "abl16": ("abl16.cu", {f"abl16_{v}{d}": _ABL16_ARGS for v in (
         "full", "noexp", "noscan", "nomxu", "notrans", "minimal", "dyn",
-        "prodbody")}),
+        "prodbody") for d in ("", "_group")}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -68,15 +68,15 @@ bfloat16 gradient products. The mxu kernels are the C entries
 ``composite32_fwd_mxu`` (``csrc/tile32_fwd_subtile_mxu.cu``: the f32
 forward's sub-tile layout, the block test with a margin for the tensor
 cores' rounding, ``block_keep_plain(..., centre=)``),
-``composite32_bwd_mxu`` (the f32 backward's sub-tile body in
-``csrc/tile32_bwd_subtile.cu``: per-warp survivor lists and power blocks
-as in the mxu forward, the mxu margin, the linear transmittance) and
-``composite32_bwd_bf16_mxu`` (still the one-CTA-per-tile kernel of
-``csrc/tile_kernel2_bwd.cu``), counted in ``launches_mxu`` (the backward
-under both flags in ``launches_bf16_mxu``); the one-CTA-per-tile mxu
-forward and backward the sub-tile ones replaced stay as the yardsticks
-``composite32_fwd_mxu_tile1024`` and ``composite32_bwd_mxu_tile1024``.
-Their plain versions evaluate
+``composite32_bwd_mxu`` and ``composite32_bwd_bf16_mxu`` (the f32
+backward's sub-tile body in ``csrc/tile32_bwd_subtile.cu``: per-warp
+survivor lists and power blocks as in the mxu forward, the mxu margin,
+the linear transmittance; under both flags bf16's rounded products),
+counted in ``launches_mxu`` (the backward under both flags in
+``launches_bf16_mxu``); the one-CTA-per-tile mxu forward and backwards
+the sub-tile ones replaced stay as the yardsticks
+``composite32_fwd_mxu_tile1024``, ``composite32_bwd_mxu_tile1024`` and
+``composite32_bwd_bf16_mxu_tile1024``. Their plain versions evaluate
 the power with ``torch.matmul`` at float32 matmul precision "highest"
 (never TF32; they raise otherwise), as the reference's dot runs at
 ``Precision.HIGHEST``.
@@ -525,8 +525,9 @@ def subtile_cells(feat: torch.Tensor, ranges: torch.Tensor, n_tx: int,
                   batch: int = 1 << 17) -> Tuple[int, int]:
     """The (pair, pixel) cells the sub-tile kernels evaluate on a plan of
     ``tile``-px tiles (32: B1/B1' and B2, under ``bf16`` B1-bf16/B1'-bf16
-    and B2-bf16 and under ``mxu`` B1-mxu/B1'-mxu and B2-mxu, whose block
-    tests carry the margin of their falloff; 16: B3/B3' and B4), from the
+    and B2-bf16 and under ``mxu`` B1-mxu/B1'-mxu, B2-mxu and, with
+    ``bf16`` too, B2-bf16-mxu, whose block tests carry the margin of their
+    falloff; 16: B3/B3' and B4), from the
     ``stop_at`` of ``plain_walk(..., done_at=True)`` (the forwards) or
     ``plain_bwd_walk(..., done_at=True)`` (the backwards) of the same
     body: (after the rect16 compaction and the block test, after the
@@ -1001,13 +1002,12 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
     """Per-pair gradient rows (B_al, 16) from the forward's planes
     (color_sum (3,H,W) before background, depth_sum, final_T) and their
     cotangents; the bfloat16 bodies under ``bf16``, the MXU falloff under
-    ``mxu`` (with the bfloat16 products under both). The f32, bf16 and
-    mxu bodies are the sub-tile kernel of ``csrc/tile32_bwd_subtile.cu``
-    (C entries ``composite32_bwd``, ``composite32_bwd_bf16``,
-    ``composite32_bwd_mxu``; one body, the block test with the margin of
-    each falloff); under both flags it is the one-CTA-per-tile
-    ``composite32_bwd_bf16_mxu`` of ``csrc/tile_kernel2_bwd.cu``. Rows the
-    kernel never writes keep the zero they were allocated with."""
+    ``mxu`` (with the bfloat16 products under both). Every body is the
+    sub-tile kernel of ``csrc/tile32_bwd_subtile.cu`` (C entries
+    ``composite32_bwd``, ``composite32_bwd_bf16``, ``composite32_bwd_mxu``,
+    ``composite32_bwd_bf16_mxu``; one body, the block test with the margin
+    of each falloff). Rows the kernel never writes keep the zero they were
+    allocated with."""
     _check(feat, ranges, n_tx, n_ty)
     _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
                   final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
@@ -1016,10 +1016,9 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
                                      final_T, d_color, d_depth, d_T, n_tx,
                                      n_ty, W, H, bf16=bf16, mxu=mxu)
     suffix = _variant(bf16, mxu)
-    lib = "tile_kernel2_bwd" if suffix == "_bf16_mxu" else "tile32_bwd_subtile"
-    dfeat = launch_bwd(lib, feat, ranges, color_sum, depth_sum, final_T,
-                       d_color, d_depth, d_T, n_tx, n_ty, W, H,
-                       "composite32_bwd" + suffix)
+    dfeat = launch_bwd("tile32_bwd_subtile", feat, ranges, color_sum,
+                       depth_sum, final_T, d_color, d_depth, d_T, n_tx, n_ty,
+                       W, H, "composite32_bwd" + suffix)
     _count(composite32_bwd, suffix)
     return dfeat
 
@@ -1097,6 +1096,27 @@ def composite32_bwd_mxu_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
                          d_depth, d_T, n_tx, n_ty, W, H)
 
 
+def composite32_bwd_bf16_mxu_tile1024(feat: torch.Tensor,
+                                      ranges: torch.Tensor,
+                                      color_sum: torch.Tensor,
+                                      depth_sum: torch.Tensor,
+                                      final_T: torch.Tensor,
+                                      d_color: torch.Tensor,
+                                      d_depth: torch.Tensor,
+                                      d_T: torch.Tensor, n_tx: int,
+                                      n_ty: int, W: int, H: int
+                                      ) -> torch.Tensor:
+    """The mxu backward with the bfloat16 products of the one-CTA-per-tile
+    design that the sub-tile kernel replaced (``csrc/tile_kernel2_bwd.cu``,
+    C entry ``composite32_bwd_bf16_mxu_tile1024``): a yardstick timed
+    beside ``composite32_bwd(bf16=True, mxu=True)`` on the same plans,
+    launched by no path."""
+    return _bwd_tile1024(composite32_bwd_bf16_mxu_tile1024,
+                         "composite32_bwd_bf16_mxu_tile1024", True, True,
+                         feat, ranges, color_sum, depth_sum, final_T,
+                         d_color, d_depth, d_T, n_tx, n_ty, W, H)
+
+
 def launch_bwd(lib: str, feat, ranges, color_sum, depth_sum, final_T,
                d_color, d_depth, d_T, n_tx, n_ty, W, H,
                entry: str) -> torch.Tensor:
@@ -1129,6 +1149,7 @@ composite32_bwd.launches_bf16_mxu = 0
 composite32_bwd_tile1024.launches = 0
 composite32_bwd_bf16_tile1024.launches = 0
 composite32_bwd_mxu_tile1024.launches = 0
+composite32_bwd_bf16_mxu_tile1024.launches = 0
 
 
 class CompositeFn(torch.autograd.Function):

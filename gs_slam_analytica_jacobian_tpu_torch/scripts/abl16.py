@@ -13,11 +13,17 @@ prints, per variant, the kernel's time (CUDA events, median of 7 after 2
 warm-up calls) and microseconds per chunk at the script's shape: 1216x704
 (38 x 22 groups of 32x32, 3344 16-px tiles), ``NC`` chunks of 128 pairs
 per tile (environment, default 2), features uniform in [0.2, 0.8) from
-seed 0. It needs a GPU.
+seed 0. It needs a GPU. ``time_turns`` times a variant in turns against
+the first port's design (``design="group"``), as chip_smoke.py does.
 
-``run`` is the wrapper: on a CUDA tensor it launches the variant's kernel
-(counted in ``run.launches[variant]``), on a CPU tensor it runs the plain
-PyTorch version ``run_plain``. Nothing here imports JAX.
+``run`` is the wrapper: on a CUDA tensor it launches the variant's kernel,
+one CTA per 16x16 subtile (C entry ``abl16_<variant>``, counted in
+``run.launches[variant]``), or under ``design="group"`` the yardstick
+kept from the first port, one CTA per 32x32 group (C entry
+``abl16_<variant>_group``, counted in ``run.launches_group[variant]``);
+the two give the same output bit for bit. On a CPU tensor it runs the
+plain PyTorch version ``run_plain`` under either design. Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ PS = 256          # pixels per 16x16 subtile
 NS = 4            # subtiles per 32x32 group
 VARIANTS = ("full", "noexp", "noscan", "nomxu", "notrans", "minimal", "dyn",
             "prodbody")
+# the kernel's designs: one CTA per 16x16 subtile (in use), one CTA per
+# 32x32 group (the first port's, a yardstick)
+DESIGNS = ("subtile", "group")
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
@@ -242,17 +251,21 @@ def _check(feat, ranges, n_gx, n_gy):
 
 
 def run(feat: torch.Tensor, ranges: torch.Tensor, n_gx: int, n_gy: int,
-        W: int, H: int, nc: int, variant: str) -> torch.Tensor:
+        W: int, H: int, nc: int, variant: str,
+        design: str = "subtile") -> torch.Tensor:
     """The variant's chunk body over the n_gx x n_gy groups: (n_gy, n_gx,
-    4, 256) f32 row sums. CUDA tensors launch ``csrc/abl16.cu``'s kernel;
-    CPU tensors take ``run_plain``."""
+    4, 256) f32 row sums. CUDA tensors launch ``csrc/abl16.cu``'s kernel
+    of ``design`` (``DESIGNS``); CPU tensors take ``run_plain``."""
     flags(variant)
+    if design not in DESIGNS:
+        raise ValueError(f"unknown design {design!r}")
     _check(feat, ranges, n_gx, n_gy)
     if feat.device.type == "cpu":
         return run_plain(feat, ranges, n_gx, n_gy, W, H, nc, variant)
+    name = f"abl16_{variant}" + ("_group" if design == "group" else "")
     out = torch.empty(n_gy, n_gx, NS, PS, dtype=torch.float32,
                       device=feat.device)
-    fn = _build.entry("abl16", f"abl16_{variant}")
+    fn = _build.entry("abl16", name)
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         err = fn(ctypes.c_void_p(feat.data_ptr()),
@@ -260,12 +273,14 @@ def run(feat: torch.Tensor, ranges: torch.Tensor, n_gx: int, n_gy: int,
                  ctypes.c_void_p(out.data_ptr()), n_gx, n_gy, W, H, nc,
                  feat.shape[1], ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"abl16_{variant} launch failed: CUDA error {err}")
-    run.launches[variant] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    counts = run.launches_group if design == "group" else run.launches
+    counts[variant] += 1
     return out
 
 
 run.launches = {v: 0 for v in VARIANTS}
+run.launches_group = {v: 0 for v in VARIANTS}
 
 
 def time_ms(fn, reps: int = 7, warm: int = 2) -> float:
@@ -283,6 +298,18 @@ def time_ms(fn, reps: int = 7, warm: int = 2) -> float:
         e1.synchronize()
         times.append(e0.elapsed_time(e1))
     return float(np.median(times))
+
+
+def time_turns(feat, ranges, n_gx, n_gy, W, H, nc, variant) -> dict:
+    """The variant's time against the group design's in turns (group,
+    subtile, subtile, group; ``time_ms`` each): ms and group_ms, the means
+    of each design's two turns, and the four turns."""
+    def once(design):
+        return time_ms(lambda: run(feat, ranges, n_gx, n_gy, W, H, nc,
+                                   variant, design=design))
+    turns = [once(d) for d in ("group", "subtile", "subtile", "group")]
+    return dict(ms=(turns[1] + turns[2]) / 2,
+                group_ms=(turns[0] + turns[3]) / 2, turns_ms=turns)
 
 
 SHAPE = dict(W=1216, H=704, n_gx=38, n_gy=22)   # the script's 836 groups

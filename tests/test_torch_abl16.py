@@ -123,6 +123,23 @@ def test_plain_matches_script_kernel_admitting_plan(ref, variant):
         assert np.all(got[0, 0, 0] == 1.0) and got.max() > 1.05
 
 
+@pytest.mark.parametrize("variant", abl16.VARIANTS)
+def test_group_design_on_cpu_is_the_plain_version(variant):
+    """``design="group"`` (on a GPU the yardstick's C entries,
+    ``abl16_<variant>_group``) takes the same plain version on CPU
+    tensors as the default design and counts no launch of either; an
+    unknown design raises."""
+    f, r = (torch.as_tensor(x) for x in _admitting_plan())
+    before = (dict(abl16.run.launches), dict(abl16.run.launches_group))
+    got = abl16.run(f, r, N_GX, N_GY, W, H, 2, variant, design="group")
+    assert torch.equal(got, abl16.run(f, r, N_GX, N_GY, W, H, 2, variant))
+    assert torch.equal(got, abl16.run_plain(f, r, N_GX, N_GY, W, H, 2,
+                                            variant))
+    assert (abl16.run.launches, abl16.run.launches_group) == before
+    with pytest.raises(ValueError):
+        abl16.run(f, r, N_GX, N_GY, W, H, 2, variant, design="tile")
+
+
 def test_bound_and_chunks():
     """The bound counts what the variant walks on this plan: every
     subtile's NC chunks, or under dyn its own ceil(n / 128)."""

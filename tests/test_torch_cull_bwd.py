@@ -21,7 +21,8 @@ the JAX package's Pallas backward in interpret mode:
   ``tests/test_torch_mxu.py``'s 2e-3 of each column's max, on one small
   plan (interpret mode is slow);
 - ``subtile_cells`` under the backward's stops agrees with a literal
-  count for the f32, bf16 and mxu bodies.
+  count for the f32, bf16, mxu and bf16 + mxu bodies (the last equal to
+  the mxu body's).
 
 The CUDA kernels run only on the card (``tests/test_torch_cuda.py``,
 ``cuda`` marker)."""
@@ -249,13 +250,11 @@ def _literal_cells(feat, ranges, n_tx, n_ty, stop_at, bf16, mxu):
     return kept, rected
 
 
-@pytest.mark.parametrize("body", ["f32", "bf16", "mxu"])
-def test_subtile_cells_under_the_backward_stops(body):
-    """subtile_cells with the stop offsets of the backward walk of each
-    body (a seeded scene's 32-px plan at 83x45) against a literal count,
-    in small batches; the count lies between the included cells and the
-    tile-walk's."""
-    bf16, mxu = body == "bf16", body == "mxu"
+def _bwd_cells(body):
+    """(subtile_cells, included cells, tile-walk pairs, plan) of the
+    backward walk of ``body`` on a seeded scene's 32-px plan at 83x45,
+    counted in small batches."""
+    bf16, mxu = BODIES.get(body, (False, False))
     args = _bwd_args("scene_83x45", bf16, mxu)
     _, walked, inc, stop = ttk.plain_bwd_walk(*args, bf16=bf16, mxu=mxu,
                                               done_at=True)
@@ -263,7 +262,20 @@ def test_subtile_cells_under_the_backward_stops(body):
     got = ttk.subtile_cells(feat, ranges, n_tx, n_ty, stop, mxu=mxu,
                             bf16=bf16, batch=97)
     assert got == _literal_cells(feat, ranges, n_tx, n_ty, stop, bf16, mxu)
-    assert int(inc) <= got[0] < got[1] <= int(walked.sum()) * ttk.P
+    return got, int(inc), int(walked.sum())
+
+
+@pytest.mark.parametrize("body", ["f32", "bf16", "mxu", "bf16_mxu"])
+def test_subtile_cells_under_the_backward_stops(body):
+    """subtile_cells with the stop offsets of the backward walk of each
+    body (a seeded scene's 32-px plan at 83x45) against a literal count;
+    the count lies between the included cells and the tile-walk's. Under
+    both flags the cells are the mxu body's: the same falloff, tests,
+    transmittance and margin (bf16 rounds only the products)."""
+    got, inc, walked = _bwd_cells(body)
+    assert inc <= got[0] < got[1] <= walked * ttk.P
+    if body == "bf16_mxu":
+        assert got == _bwd_cells("mxu")[0]
 
 
 if __name__ == "__main__":
