@@ -36,11 +36,14 @@ Phases (each one that fails ends the run with a non-zero exit code):
    passes (min / median / max wall and host CPU time per frame).
    Fails on non-finite output, pair-plan overflow, mean translation error
    above 1 mm, or a kernel that the main path never launched.
-   Then, outside the launch count: host syncs per frame (CUDA sync debug
-   mode) and one torch.profiler pass (device busy time, idle share, top
-   kernels; a table in chiprun_out/), and one more run at the adapted
-   schedule bench.py recorded in BENCH_r05.json, which fails unless its
-   mean translation error lies within 5% of the JAX tracker's there.
+   Then, outside the launch count, one more run at the adapted schedule
+   bench.py recorded in BENCH_r05.json, which fails unless its mean
+   translation error lies within 5% of the JAX tracker's there.
+   torch.profiler leaves the process's host about 2x slower for the rest
+   of its life, so every profiled pass (host syncs per frame under CUDA
+   sync debug mode, then device busy time, idle share and top kernels, a
+   table in chiprun_out/) is deferred until after the SLAM paths; the
+   BENCH_r05 schedule is read once more after them.
    Then ``main-path-tile16``: the main path's schedule on 16-px plans and
    the 16x16 kernels (TILE16_REPS timed passes), tracking frames rendered
    on them; it fails above TILE16_MAX_ERR_M or if a 32x32 kernel
@@ -55,7 +58,7 @@ Phases (each one that fails ends the run with a non-zero exit code):
    defaults: curv fd, every iteration exact, no plan or H carried, as
    the frontend runs it when every frame uses all its iterations),
    ``track_frame_gn`` and the Adam ``track_frame`` on frame 1. Outside
-   the counts, the two pyramid paths are profiled once more and
+   the counts, the two pyramid paths are profiled (deferred) and
    exact-pyramid runs once more with H carried across frames. Each path
    fails on non-finite output, overflow or a kernel it never launched,
    and on its pose error: keyframe-polish above 1 mm mean, exact-pyramid
@@ -70,8 +73,8 @@ Phases (each one that fails ends the run with a non-zero exit code):
    1.. (fed 1 mm / 1 mrad off their poses, each with handle_keyframe over
    the window) and refines colors for MAP_REFINE_ITERS iterations. Each
    prints walls, iterations/s, active Gaussians, densify counts,
-   keyframe PSNR and pose error, host syncs per iteration and one
-   profiled keyframe; each fails on non-finite state, overflow, a window
+   keyframe PSNR and pose error, host syncs per iteration and (deferred)
+   one profiled keyframe, its last window mapped once more; each fails on non-finite state, overflow, a window
    loss that did not fall, a kernel of its tile size not launched or one
    of the other launched, and on PSNR and pose-error limits; the two
    fail unless they agree within MAP_T16_PSNR_DB and MAP_T16_ACTIVE_REL.
@@ -192,8 +195,29 @@ the others; exact-pyramid-bf16-mxu also runs once more on it). B5 runs
 one CTA per 16x16 subtile; its first design (one CTA per 32x32 group,
 the ``abl16_<variant>_group`` entries, ``design="group"``) is a
 yardstick, held to the same 1e-5 gate and to the new design's output bit
-for bit, and timed in turns beside it (group_ms, vs_group). A
-failed gate is printed and the run
+for bit, and timed in turns beside it (group_ms, vs_group).
+
+The last slice adds the port's bench and entry points and the multi-rank
+paths, each with its launch counts (``ops/launches.py``; the ranks'
+counts are read in each rank and summed): ``bench``, after
+bench-r05-schedule, runs ``python -m gs_slam_analytica_jacobian_tpu_torch.bench``
+at its defaults in a process of its own (its JSON line printed; its mean
+error within R05_ERR_REL of the JAX record, ground-truth overflow 0, the
+adapted level_iters / level_caps present, no TPU figure; its ms/frame
+beside bench-r05-schedule's in the same call); ``entry`` calls
+graft_entry.entry()'s ``fn(*args)`` (shapes, finite, B1 launched, the
+same scene's plan without overflow; B1 on that plan is held against the
+plain version in the kernel case entry_cloud50k). After the
+mapping paths, ``multichip`` runs graft_entry.dryrun_multichip on
+MULTICHIP_RANKS ranks sharing the card (gloo; its gates, and B1' and B2
+launched on every rank); ``mapping-mesh2`` runs the backend of the
+mapping path on MESH_RANKS ranks over its keyframes, without color
+refinement (finite, no overflow, the window loss falling, the path's
+kernels launched on every rank, the ranks' final states equal, PSNR
+within MESH_PSNR_DB and active Gaussians within MESH_ACTIVE_REL of the
+mapping path's before its refinement); ``slab-mesh2`` renders the room
+map in MESH_RANKS depth slabs with its mapping-loss gradients (tiled),
+against the one-rank render and gradients (SLAB_*). A failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
 """
@@ -211,18 +235,23 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
+from gs_slam_analytica_jacobian_tpu_torch import bench, graft_entry  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.bench import ca_start, cv_start  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.device import card_line  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch import jacobian_test as lab  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.models import gaussian_map as gmap  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import _build  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import camera_math as cm  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import gaussian_math as gmath  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.ops import launches as path_launches  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import losses  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel16 as tk16  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel2 as tk  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops.lie import se3_exp  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops.pair_gather import pair_gather  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.parallel import sharding, slab  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops.renderer_tiled import (  # noqa: E402
     make_plan, pack_table)
 from gs_slam_analytica_jacobian_tpu_torch.scenes import make_cloud, make_room_map  # noqa: E402
@@ -410,6 +439,41 @@ MAP_T16_ACTIVE_REL = 0.02
 MAP_PSNR_MAPPED_MIN_DB = 31.0
 MAP_PSNR_REFINED_MIN_DB = 33.0
 MAP_POSE_ERR_MAX_MM = 2.5
+
+# The multi-rank paths (parallel/sharding.py, parallel/slab.py), ranks
+# sharing the one card under gloo: ``multichip`` is dryrun_multichip on
+# MULTICHIP_RANKS ranks; ``mapping-mesh2`` the backend on MESH_RANKS
+# ranks over the mapping path's MAP_KF keyframes (its room map, config
+# and cuts; no color refinement, which runs unsharded), against the
+# mapping path before its refinement, within the tile16 gate's form. It
+# maps all of them: the frame slots split into contiguous shards, as the
+# reference's P("data"), and the window's 10 slots fill from slot 0, so
+# over the first 4 keyframes rank 1's slots (6-11) hold nothing.
+# ``slab-mesh2`` renders the room map at frame 0 and its mapping-loss
+# gradients against keyframe 1's ground truth (a real residual) in
+# MESH_RANKS depth slabs (tiled), against the one-rank render of the map
+# in the slabs' emission order (depth_slab_order: the packed sort key
+# keeps fewer depth bits, so depth ties composite in emission order, and
+# on the room's walls the ties are many) and its gradients. Images: the
+# reference stops a pixel at the first Gaussian that would take T below
+# 1e-4 and drops it, so a pixel stops at a T of up to 1e-4 / (1 - 0.99) =
+# SLAB_STOP_T; the slabs behind still add what the one-rank render cut
+# there, at most its final T in opacity (times the largest Gaussian color
+# or view depth in color and depth: parallel/slab.py). So where the
+# one-rank render's final T is SLAB_STOP_T or more (no stop) the images
+# agree within SLAB_IMG_TOL, and elsewhere within that bound plus
+# SLAB_IMG_TOL (the reference's docstring, slab.py:19-24, says 1e-4 for
+# both). Gradients: each field's cosine above SLAB_GRAD_MIN_COS and max
+# |diff| / max |one-rank| below SLAB_GRAD_MAX_REL (the lab closure's
+# form).
+MULTICHIP_RANKS = 4
+MESH_RANKS = 2
+MESH_PSNR_DB = 0.5
+MESH_ACTIVE_REL = 0.02
+SLAB_IMG_TOL = 1e-4
+SLAB_STOP_T = 1e-2
+SLAB_GRAD_MIN_COS = 0.999
+SLAB_GRAD_MAX_REL = 0.05
 
 # The bf16 tracker paths (kernel_bf16): timed passes, each followed by
 # the same passes of its f32 path (uncounted), so the two walls are read
@@ -607,14 +671,6 @@ def check_failures():
         sys.exit(1)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
 def time_ms(fn, reps=7, warm=2):
     """Median CUDA-event time of ``fn`` in ms."""
     for _ in range(warm):
@@ -633,16 +689,10 @@ def time_ms(fn, reps=7, warm=2):
 
 
 def pose_list(n=FRAMES):
-    """bench.py's trajectory (bench.py:168-175), ~6 mm + 4 mrad per frame,
-    composed in float32: its first ``n`` poses (the bench's 5 by
+    """bench.py's trajectory (bench.py:168-175, the port's bench.pose_list),
+    ~6 mm + 4 mrad per frame: its first ``n`` poses (the bench's 5 by
     default)."""
-    tau_step = np.array([0.0035, -0.0028, 0.0042, 0.002, 0.003, -0.0015],
-                        np.float32)
-    poses = [np.eye(4, dtype=np.float32)]
-    for k in range(1, n):
-        step = torch.as_tensor(tau_step * np.float32(1.0 + 0.1 * np.sin(k)))
-        poses.append(se3_exp(step).numpy() @ poses[-1])
-    return poses
+    return bench.pose_list(n)
 
 
 # ---------------------------------------------------------------------------
@@ -935,6 +985,7 @@ def phase_kernels(dev, gm, cam):
           f"{int(plan.overflow)}", flush=True)
     recs.append(kernel_case("entry_cloud50k", feat, ranges, n_tx, n_ty, W, H,
                             True, time_plain=False))
+    recs[-1]["overflow"] = int(plan.overflow)
 
     # the room map's pyramid levels at the first frame's pose, planned as
     # the tracker plans them (radius_scale 1.1, pad max(2, 4/s), matched
@@ -1708,23 +1759,6 @@ def phase_abl16(dev):
     return recs
 
 
-def cv_start(R1, t1, R0, t0):
-    Rd = R1 @ R0.T
-    return Rd @ R1, Rd @ (t1 - t0) + t1
-
-
-def ca_start(R1, t1, R0, t0, Rm, tm):
-    Rd1 = R1 @ R0.T
-    td1 = t1 - Rd1 @ t0
-    Rd0 = R0 @ Rm.T
-    td0 = t0 - Rd0 @ tm
-    Ra = Rd1 @ Rd0.T
-    ta = td1 - Ra @ td0
-    Rp = Ra @ Rd1
-    tp = Ra @ td1 + ta
-    return Rp @ R1, Rp @ t1 + tp
-
-
 # bench.py's operating point (BENCH_r05.json detail) without its adaptive
 # steps: the schedule every tracked frame of the main path runs
 BENCH_KW = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
@@ -1928,43 +1962,26 @@ def count_syncs(fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-# kernel name -> (wrapper, its launch counter): the bf16 and mxu variants
-# count in their wrapper's ``launches_bf16``, ``launches_mxu`` and (the
-# backward under both) ``launches_bf16_mxu``
-WRAPPERS = {"composite32_fwd": (tk.composite32_fwd, "launches"),
-            "composite32_fwd_ntouch": (tk.composite32_fwd_ntouch,
-                                       "launches"),
-            "composite32_bwd": (tk.composite32_bwd, "launches"),
-            "composite16_fwd": (tk16.composite16_fwd, "launches"),
-            "composite16_fwd_ntouch": (tk16.composite16_fwd_ntouch,
-                                       "launches"),
-            "composite16_bwd": (tk16.composite16_bwd, "launches"),
-            "composite32_fwd_bf16": (tk.composite32_fwd, "launches_bf16"),
-            "composite32_fwd_ntouch_bf16": (tk.composite32_fwd_ntouch,
-                                            "launches_bf16"),
-            "composite32_bwd_bf16": (tk.composite32_bwd, "launches_bf16"),
-            "composite32_fwd_mxu": (tk.composite32_fwd, "launches_mxu"),
-            "composite32_fwd_ntouch_mxu": (tk.composite32_fwd_ntouch,
-                                           "launches_mxu"),
-            "composite32_bwd_mxu": (tk.composite32_bwd, "launches_mxu"),
-            "composite32_bwd_bf16_mxu": (tk.composite32_bwd,
-                                         "launches_bf16_mxu"),
-            "composite32_fwd_tile1024": (tk.composite32_fwd_tile1024,
-                                         "launches"),
-            "composite32_bwd_tile1024": (tk.composite32_bwd_tile1024,
-                                         "launches"),
-            "composite32_fwd_mxu_tile1024": (
-                tk.composite32_fwd_mxu_tile1024, "launches"),
-            "composite16_bwd_walk": (tk16.composite16_bwd_walk, "launches"),
-            "composite32_fwd_bf16_tile1024": (
-                tk.composite32_fwd_bf16_tile1024, "launches"),
-            "composite16_fwd_walk": (tk16.composite16_fwd_walk, "launches"),
-            "composite32_bwd_bf16_tile1024": (
-                tk.composite32_bwd_bf16_tile1024, "launches"),
-            "composite32_bwd_mxu_tile1024": (
-                tk.composite32_bwd_mxu_tile1024, "launches"),
-            "composite32_bwd_bf16_mxu_tile1024": (
-                tk.composite32_bwd_bf16_mxu_tile1024, "launches")}
+# kernel name -> (wrapper, its launch counter): the paths' kernels
+# (ops/launches.py: the bf16 and mxu variants count in their wrapper's
+# ``launches_bf16``, ``launches_mxu`` and, the backward under both,
+# ``launches_bf16_mxu``), then the yardsticks
+WRAPPERS = dict(
+    path_launches.COUNTERS,
+    composite32_fwd_tile1024=(tk.composite32_fwd_tile1024, "launches"),
+    composite32_bwd_tile1024=(tk.composite32_bwd_tile1024, "launches"),
+    composite32_fwd_mxu_tile1024=(tk.composite32_fwd_mxu_tile1024,
+                                  "launches"),
+    composite16_bwd_walk=(tk16.composite16_bwd_walk, "launches"),
+    composite32_fwd_bf16_tile1024=(tk.composite32_fwd_bf16_tile1024,
+                                   "launches"),
+    composite16_fwd_walk=(tk16.composite16_fwd_walk, "launches"),
+    composite32_bwd_bf16_tile1024=(tk.composite32_bwd_bf16_tile1024,
+                                   "launches"),
+    composite32_bwd_mxu_tile1024=(tk.composite32_bwd_mxu_tile1024,
+                                  "launches"),
+    composite32_bwd_bf16_mxu_tile1024=(tk.composite32_bwd_bf16_mxu_tile1024,
+                                       "launches"))
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
@@ -2518,14 +2535,21 @@ def time_map_calls(be):
     return walls
 
 
-def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
-    """The backend over the MAP_KF keyframes, as the frontend would feed
-    it: keyframe 0 at its true pose (initialize_map), keyframes 1.. with a
+def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16, mesh=None):
+    """The backend over MAP_KF keyframes, as the frontend would feed it:
+    keyframe 0 at its true pose (initialize_map), keyframes 1.. with a
     seeded perturbation, each followed by handle_keyframe over the window
-    (newest first), then color refinement. One keyframe runs under CUDA
-    sync debug mode (host syncs per iteration) and one under
-    torch.profiler; both are left out of the wall statistics."""
+    (newest first). On one rank (``mesh`` None) then MAP_REFINE_ITERS of
+    color refinement; one keyframe runs under CUDA sync debug mode (host
+    syncs per iteration), left out of the wall statistics; and the PSNR
+    and pose-error limits. With ``mesh`` ranks (this process one of them)
+    the backend maps over the mesh, without refinement, the sync count or
+    those limits, and the record carries a digest of the final state.
+    Returns (record, backend): the profiled keyframe (profile_mapping)
+    maps the backend's last window once more, after every timed pass."""
     cfg = mapping_config(tile16)
+    cfg["Training"]["mesh_devices"] = mesh or 1
+    refine_iters = 0 if mesh else MAP_REFINE_ITERS
     be = BackEnd(cfg, cam, device=dev)
     be.prewarm_mapping()
     rng = np.random.default_rng(7)
@@ -2541,9 +2565,9 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
     active = {"init": int(be.gm.num_active())}
     map_walls = time_map_calls(be)
     window, per_kf, seed_s = [0], [], []
-    sync_kf, prof_kf = 3, 4
+    sync_kf = None if mesh else 3
     overflow = window_overflow(be, window)
-    prof = syncs_per_iter = None
+    syncs_per_iter = None
     for k in range(1, MAP_KF):
         gk = kf_gts[k]
         torch.cuda.synchronize()
@@ -2560,10 +2584,6 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
         if k == sync_kf:
             syncs_per_iter = (count_syncs(lambda: be.handle_keyframe(k, window))
                               / (be.iteration_count - it0))
-        elif k == prof_kf:
-            prof = profile_call(lambda: be.handle_keyframe(k, window),
-                                f"map_{name}")
-            prof["iterations"] = be.iteration_count - it0
         else:
             be.handle_keyframe(k, window)
         with uncounted():
@@ -2577,18 +2597,20 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
                            loss_before=loss_b, loss_after=loss_a,
                            psnr_mean_before=float(np.mean(psnr_b)),
                            psnr_mean_after=float(np.mean(psnr_a)),
-                           instrumented=k in (sync_kf, prof_kf)))
+                           instrumented=k == sync_kf))
     uids = list(range(MAP_KF))
     with uncounted():
         psnr_map, _, err_map = keyframe_eval(be, kf_gts, kf_poses, uids)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    be.color_refinement(iteration_total=MAP_REFINE_ITERS)
-    torch.cuda.synchronize()
-    refine_s = time.perf_counter() - t0
+    psnr_ref, refine_s = psnr_map, 0.0
+    if refine_iters:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        be.color_refinement(iteration_total=refine_iters)
+        torch.cuda.synchronize()
+        refine_s = time.perf_counter() - t0
+        with uncounted():
+            psnr_ref, _, _ = keyframe_eval(be, kf_gts, kf_poses, uids)
     active["refined"] = int(be.gm.num_active())
-    with uncounted():
-        psnr_ref, _, _ = keyframe_eval(be, kf_gts, kf_poses, uids)
     err_before = [1e3 * float(np.linalg.norm(starts[k][:3, 3]
                                              - kf_poses[k][:3, 3]))
                   for k in range(1, MAP_KF)]
@@ -2604,7 +2626,8 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
                    and torch.isfinite(be.store.t).all())
     rec = dict(
         path=name, tile16=tile16, keyframes=MAP_KF, resolution=f"{W}x{H}",
-        cuts=dict(MAP_CUTS, color_refinement=MAP_REFINE_ITERS),
+        cuts=dict(MAP_CUTS, color_refinement=refine_iters),
+        mesh_devices=mesh or 1, frame_slots=be.F,
         init_s=init_s, init_iters=cfg["Training"]["init_itr_num"],
         seed_s_median=float(np.median(seed_s)),
         kf_map_s_median=float(np.median(kf_walls)),
@@ -2612,7 +2635,8 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
         kf_prune_s_median=float(np.median(prune_walls)),
         kf_prune_s_max=float(np.max(prune_walls)),
         map_iters_per_s=map_iters / float(np.sum(kf_walls)),
-        refine_s=refine_s, refine_iters_per_s=MAP_REFINE_ITERS / refine_s,
+        refine_s=refine_s,
+        refine_iters_per_s=refine_iters / refine_s if refine_iters else None,
         iterations=be.iteration_count, active=active,
         densify=[dict(iteration=d["iteration"], clone=int(d["clone"]),
                       split=int(d["split"]), prune=int(d["prune"]),
@@ -2628,8 +2652,10 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
         pose_err_after_max_mm=float(np.max(err_map[1:])),
         window_loss_first=per_kf[-1]["loss_before"],
         window_loss_final=per_kf[-1]["loss_after"],
-        host_syncs_per_iter=syncs_per_iter, profile=prof,
+        host_syncs_per_iter=syncs_per_iter,
         finite=finite, per_keyframe=per_kf, card=card_line())
+    if mesh:
+        rec["state_sha256"] = state_digest(be)
     print(f"{name} " + json.dumps(rec), flush=True)
     if not finite:
         fail(f"{name}: non-finite map or poses")
@@ -2639,6 +2665,8 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
     if not rec["window_loss_final"] < rec["window_loss_first"]:
         fail(f"{name}: the final window loss {rec['window_loss_final']:.6f}"
              f" is not below the first {rec['window_loss_first']:.6f}")
+    if mesh:
+        return rec, be
     if (rec["psnr_mapped_mean"] < MAP_PSNR_MAPPED_MIN_DB
             or rec["psnr_refined_mean"] < MAP_PSNR_REFINED_MIN_DB):
         fail(f"{name}: keyframe PSNR {rec['psnr_mapped_mean']:.3f} dB "
@@ -2648,7 +2676,335 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16):
         fail(f"{name}: mean keyframe pose error "
              f"{rec['pose_err_after_mm']:.4f} mm after mapping (limit "
              f"{MAP_POSE_ERR_MAX_MM} mm)")
-    return rec
+    return rec, be
+
+
+def profile_mapping(name, be):
+    """One keyframe of a mapping path under torch.profiler (profile_call):
+    the backend's last window mapped once more, after every timed pass
+    (PERF.md §7: the profiler leaves the process's host slower)."""
+    it0 = be.iteration_count
+    prof = profile_call(
+        lambda: be.handle_keyframe(MAP_KF - 1, be.current_window),
+        f"map_{name}")
+    prof["iterations"] = be.iteration_count - it0
+    print(f"profile-{name} " + json.dumps(dict(prof, card=card_line())),
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the port's bench and entry points, and the multi-rank paths
+# ---------------------------------------------------------------------------
+
+def phase_bench(r05, dev):
+    """``python -m gs_slam_analytica_jacobian_tpu_torch.bench`` at its
+    defaults (no BENCH_* set) in a subprocess: its JSON line, its launch
+    counts (WRAPPERS' names), and its ms/frame beside this call's reading
+    of the schedule it adapts to (bench-r05-schedule, ``r05``) and beside
+    bench.run_bench in this process (uncounted)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "gs_slam_analytica_jacobian_tpu_torch.bench"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    if res.returncode != 0 or not lines:
+        fail(f"bench: exit {res.returncode}, no JSON line; stderr tail: "
+             f"{res.stderr[-2000:]}")
+        return None, {n: 0 for n in WRAPPERS}
+    line = lines[-1]
+    print(f"bench {line}", flush=True)
+    rec = json.loads(line)
+    d = rec["detail"]
+    counts = {n: d["kernel_launches"].get(n, 0) for n in WRAPPERS}
+    print(f"bench launches: {json.dumps(counts)}", flush=True)
+    with uncounted():
+        here = bench.run_bench(device=dev)["detail"]
+    print(f"bench: {d['ms_per_frame']:.2f} ms/frame ({rec['value']:.3f} "
+          f"FPS) against this call's bench-r05-schedule "
+          f"{r05['ms_per_frame']:.2f} ms/frame and run_bench in this "
+          f"process {here['ms_per_frame']:.2f} ms/frame "
+          f"({here['iters_per_frame']} iterations/frame); adapted level_iters "
+          f"{d['level_iters']}, level_caps {d['level_caps']}; mean error "
+          f"{d['pose_err_mean_m'] * 1e3:.4f} mm; {wall:.1f} s with the "
+          "process start", flush=True)
+    rel = abs(d["pose_err_mean_m"] / R05_JAX_ERR_MEAN_M - 1.0)
+    if rec["metric"] != "tracking_fps_replica_scale" or rel > R05_ERR_REL:
+        fail(f"bench: metric {rec['metric']}, mean error "
+             f"{d['pose_err_mean_m']} m is {rel:.1%} from the JAX record's "
+             f"{R05_JAX_ERR_MEAN_M} m (limit {R05_ERR_REL:.0%})")
+    if d["gt_render_overflow"] != 0:
+        fail(f"bench: ground-truth overflow {d['gt_render_overflow']}")
+    if not d["level_iters"] or not d["level_caps"]:
+        fail("bench: no adapted level_iters / level_caps in its record")
+    if any(w in line for w in ("TPU", "v5e", "VPU")):
+        fail("bench: its record names a TPU figure")
+    for name in ("composite32_fwd", "composite32_fwd_ntouch"):
+        if counts[name] == 0:
+            fail(f"kernel {name} was never launched on the path bench")
+    return rec, counts
+
+
+def phase_entry(dev, case):
+    """graft_entry.entry()'s ``fn(*args)`` on the card (the 50k cloud at
+    1200x680, pair capacity 2^20): shapes, finite, B1 launched, and fn's
+    time outside the count. ``case`` is phase_kernels' entry_cloud50k
+    record: the same scene's plan (its overflow, gated here) and B1 held
+    against the plain version on it."""
+    fn, args = graft_entry.entry(device=dev)
+    reset_counts()
+    color, depth, opacity = fn(*args)
+    torch.cuda.synchronize()
+    counts = read_counts("entry", ("composite32_fwd_ntouch",))
+    with uncounted():
+        ms = time_ms(lambda: fn(*args))
+    shapes = [tuple(o.shape) for o in (color, depth, opacity)]
+    finite = all(bool(torch.isfinite(o).all()) for o in (color, depth,
+                                                         opacity))
+    rec = dict(shapes=shapes, finite=finite, plan_overflow=case["overflow"],
+               b1_max_abs_err=case["max_abs_err"], ms=ms,
+               color_mean=float(color.mean()), card=card_line())
+    print("entry " + json.dumps(rec), flush=True)
+    if shapes != [(3, H, W), (1, H, W), (1, H, W)]:
+        fail(f"entry: shapes {shapes}")
+    if not finite or case["overflow"]:
+        fail(f"entry: finite {finite}, plan overflow {case['overflow']}")
+    return counts
+
+
+def phase_multichip(dev):
+    """graft_entry.dryrun_multichip(MULTICHIP_RANKS) with the ranks
+    sharing the card (gloo): its gates (finite losses, the map moved,
+    n_touched > 0, non-zero slab gradients, the same loss on every rank),
+    and B1' and B2 launched on every rank."""
+    t0 = time.perf_counter()
+    try:
+        recs = graft_entry.dryrun_multichip(MULTICHIP_RANKS, device=dev)
+    except Exception as e:
+        fail(f"multichip: {type(e).__name__}: {e}")
+        return {n: 0 for n in WRAPPERS}
+    wall = time.perf_counter() - t0
+    total = {n: 0 for n in WRAPPERS}
+    for r in recs:
+        per = {n: sum(r[p]["launches"].get(n, 0)
+                      for p in ("step", "integrated", "slab"))
+               for n in WRAPPERS}
+        print(f"multichip rank {r['rank']} launches: " + json.dumps(
+            {p: {n: c for n, c in r[p]["launches"].items() if c}
+             for p in ("step", "integrated", "slab")}), flush=True)
+        for name in ("composite32_fwd", "composite32_bwd"):
+            if per[name] == 0:
+                fail(f"multichip: {name} never launched on rank {r['rank']}")
+        for n in total:
+            total[n] += per[n]
+    print("multichip " + json.dumps(dict(
+        ranks=MULTICHIP_RANKS, wall_s=wall,
+        losses={p: recs[0][p]["loss"] for p in ("step", "integrated",
+                                                "slab")},
+        card=card_line())), flush=True)
+    return total
+
+
+def state_digest(be):
+    """sha256 of the backend's map and keyframe poses (the ranks of a mesh
+    must end with the same state bit for bit)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (be.gm.xyz, be.gm.opacity, be.gm.scaling, be.gm.features_dc,
+              be.gm.active, be.store.R, be.store.t):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def slab_one_rank(dev, gm, cam, gt, slab_order=True):
+    """The one-rank reference of slab-mesh2: the full map's tiled render
+    at ``cam`` and the gradients of the mapping loss against ``gt`` (in
+    the map's order). With ``slab_order`` the map is rendered with its
+    Gaussians in the slabs' emission order (depth_slab_order), so that
+    depth ties composite as in the slabs."""
+    order = (slab.depth_slab_order(gm, cam) if slab_order
+             else torch.arange(gm.capacity, device=dev))
+    params = {f: getattr(gm, f)[order].detach().requires_grad_()
+              for f in gmap.PARAM_FIELDS}
+    g = gm.replace(active=gm.active[order], **params)
+    bg = torch.zeros(3, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = renderer_tiled.render(
+        g.xyz, g.get_cov6(), g.get_opacity(), g.get_features(), 0,
+        cam.w2c(), cam.projection(), torch.zeros(6, device=dev), cam.fx,
+        cam.fy, W, H, cam.tanfovx, cam.tanfovy, bg, active=g.active,
+        pair_capacity=PAIR_CAP, need_n_touched=False, device=dev)
+    loss = losses.loss_mapping_rgbd(out.color, out.depth, gt[0], gt[1],
+                                    0.01, 0.95)
+    grads = torch.autograd.grad(loss, [params[f] for f in gmap.PARAM_FIELDS])
+    torch.cuda.synchronize()
+    inv = torch.argsort(order)
+    return dict(color=out.color.detach(), depth=out.depth.detach(),
+                opacity=out.opacity.detach(), final_T=out.final_T.detach(),
+                loss=float(loss.detach()),
+                grads={f: g_[inv] for f, g_ in zip(gmap.PARAM_FIELDS,
+                                                   grads)},
+                wall_s=time.perf_counter() - t0)
+
+
+def mesh2_rank(device="cuda"):
+    """One rank of mapping-mesh2 and slab-mesh2 (spawned by
+    sharding.run_ranks; chip_smoke's own state is this process's): the
+    room map and the mapping path's keyframes' ground truth made here, the
+    backend on the mesh, then the slab render and gradients. Returns the
+    records (the slab's images and gradients as numpy) and this rank's
+    failed gates."""
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device.startswith("cuda") else torch.device(device))
+    gm, cam = room_scene(dev)
+    kf_poses = pose_list(1 + KF_STEP * (MAP_KF - 1))[::KF_STEP]
+    with uncounted():
+        kf_gts, _ = render_ground_truth(dev, gm, cam, kf_poses)
+    reset_counts()
+    mapping_rec, _ = run_mapping("mapping-mesh2", dev, cam, kf_gts,
+                                 kf_poses, False, mesh=MESH_RANKS)
+    mapping_rec["launches"] = {n: count_of(n) for n in WRAPPERS}
+    mesh = sharding.make_mesh(MESH_RANKS, device=dev)
+    bg = torch.zeros(3, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    color, depth, opac = slab.slab_render(mesh, gm, cam, bg, tiled=True,
+                                          pair_capacity=PAIR_CAP)
+    loss, grads = slab.slab_mapping_loss_and_grads(
+        mesh, gm, cam, kf_gts[1][0], kf_gts[1][1], bg, tiled=True,
+        pair_capacity=PAIR_CAP)
+    torch.cuda.synchronize()
+    slab_rec = dict(
+        color=color.detach().cpu().numpy(), depth=depth.detach().cpu().numpy(),
+        opacity=opac.detach().cpu().numpy(), loss=float(loss.detach()),
+        grads={f: g.cpu().numpy() for f, g in grads.items()},
+        wall_s=time.perf_counter() - t0,
+        launches={n: count_of(n) for n in WRAPPERS})
+    return dict(rank=mesh.rank, mapping=mapping_rec, slab=slab_rec,
+                failures=list(FAILURES))
+
+
+def phase_mesh2(dev, gm, cam, kf_gts, one, launches):
+    """mapping-mesh2 and slab-mesh2 on MESH_RANKS ranks sharing the card:
+    the first against ``one``, the mapping path's record (its state
+    before color refinement), the second against the one-rank render and
+    gradients."""
+    with uncounted():
+        ref = slab_one_rank(dev, gm, cam, kf_gts[1])
+        ref_map_order = slab_one_rank(dev, gm, cam, kf_gts[1],
+                                      slab_order=False)
+    t0 = time.perf_counter()
+    try:
+        ranks = sharding.run_ranks(mesh2_rank, MESH_RANKS, (dev.type,),
+                                   device=dev)
+    except Exception as e:
+        fail(f"mapping-mesh2 / slab-mesh2: {type(e).__name__}: {e}")
+        return
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        for msg in r["failures"]:
+            fail(f"rank {r['rank']}: {msg}")
+    for path in ("mapping", "slab"):
+        name = f"{path}-mesh2"
+        launches[name] = {n: sum(r[path]["launches"][n] for r in ranks)
+                          for n in WRAPPERS}
+        print(f"{name} launches by rank: " + json.dumps(
+            [r[path]["launches"] for r in ranks]), flush=True)
+        for r in ranks:
+            for k in (("composite32_fwd", "composite32_bwd")
+                      + (("composite32_fwd_ntouch",) if path == "mapping"
+                         else ())):
+                if r[path]["launches"][k] == 0:
+                    fail(f"kernel {k} was never launched on rank "
+                         f"{r['rank']} of {name}")
+            for k in KERNELS16 + YARDSTICKS:
+                if r[path]["launches"][k]:
+                    fail(f"kernel {k} was launched on rank {r['rank']} of "
+                         f"{name}")
+    m = ranks[0]["mapping"]
+    digests = {r["mapping"]["state_sha256"] for r in ranks}
+    last = f"kf{MAP_KF - 1}"
+    dpsnr = m["psnr_mapped_mean"] - one["psnr_mapped_mean"]
+    dact = m["active"][last] / one["active"][last] - 1.0
+    print(f"mapping-mesh2 vs mapping: PSNR {dpsnr:+.4f} dB, active "
+          f"Gaussians {dact:+.4%}, keyframe map wall "
+          f"{m['kf_map_s_median']:.4f} s against {one['kf_map_s_median']:.4f}"
+          f", window loss {m['window_loss_first']:.6f} -> "
+          f"{m['window_loss_final']:.6f}; ranks' states equal "
+          f"{len(digests) == 1}; {wall:.1f} s with the ranks' start",
+          flush=True)
+    if len(digests) != 1:
+        fail("mapping-mesh2: the ranks' final states differ")
+    if abs(dpsnr) > MESH_PSNR_DB or abs(dact) > MESH_ACTIVE_REL:
+        fail(f"mapping-mesh2 vs mapping: PSNR {dpsnr:+.3f} dB (limit "
+             f"{MESH_PSNR_DB}), active {dact:+.2%} (limit "
+             f"{MESH_ACTIVE_REL:.0%})")
+
+    s0 = ranks[0]["slab"]
+    img_err = {k: float(np.abs(s0[k] - ref[k].cpu().numpy()).max())
+               for k in ("color", "depth", "opacity")}
+    # the stop rule's bound: per pixel, the one-rank final T times the
+    # largest Gaussian color (SH degree 0, clamped at 0) or view depth
+    tf = ref["final_T"].cpu().numpy()
+    stopped = tf < SLAB_STOP_T
+    scale = dict(
+        opacity=1.0, depth=float((gm.xyz @ cam.R[2] + cam.t[2]).max()),
+        color=float(torch.clamp(0.5 + 0.28209479177387814
+                                * gm.features_dc[:, 0], min=0).max()))
+    free_err, over_bound = {}, {}
+    for k in ("color", "depth", "opacity"):
+        d = np.abs(s0[k] - ref[k].cpu().numpy()).max(axis=0)     # (H, W)
+        free_err[k] = float(d[~stopped].max()) if (~stopped).any() else 0.0
+        over_bound[k] = int((d > tf * scale[k] + SLAB_IMG_TOL).sum())
+    grad = {}
+    for f in gmap.PARAM_FIELDS:
+        a, b = s0["grads"][f].ravel(), ref["grads"][f].cpu().numpy().ravel()
+        if b.size == 0:
+            continue
+        grad[f] = dict(
+            cosine=float(a @ b / max(np.linalg.norm(a) * np.linalg.norm(b),
+                                     1e-30)),
+            max_rel=float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)))
+    same = all(np.array_equal(r["slab"][k], s0[k]) for r in ranks[1:]
+               for k in ("color", "depth", "opacity"))
+    # beside it, the one-rank render of the map in its own order: the
+    # depth ties' order, not the slabs, sets that difference
+    map_order_err = {k: float(np.abs(s0[k] - ref_map_order[k].cpu().numpy()
+                                     ).max())
+                     for k in ("color", "depth", "opacity")}
+    rec = dict(ranks=MESH_RANKS, max_abs_err=img_err,
+               max_abs_err_unstopped=free_err,
+               pixels_over_stop_bound=over_bound,
+               stopped_pixels=int(stopped.sum()),
+               max_final_T_stopped=float(tf[stopped].max()),
+               map_order_max_abs_err=map_order_err,
+               loss=s0["loss"], loss_one_rank=ref["loss"], grads=grad,
+               ranks_equal=same, wall_s=s0["wall_s"],
+               one_rank_wall_s=ref["wall_s"], card=card_line())
+    print("slab-mesh2 " + json.dumps(rec), flush=True)
+    if (not same or max(free_err.values()) > SLAB_IMG_TOL
+            or any(over_bound.values())):
+        fail(f"slab-mesh2: images {free_err} off where the one-rank render "
+             f"did not stop (limit {SLAB_IMG_TOL}), pixels over the stop "
+             f"rule's bound {over_bound}, ranks equal {same}")
+    for f, g in grad.items():
+        if not (g["cosine"] > SLAB_GRAD_MIN_COS
+                and g["max_rel"] < SLAB_GRAD_MAX_REL):
+            fail(f"slab-mesh2: {f} gradient cosine {g['cosine']:.6f} "
+                 f"(limit {SLAB_GRAD_MIN_COS}), max rel {g['max_rel']:.4f} "
+                 f"(limit {SLAB_GRAD_MAX_REL})")
+
+
+def room_scene(dev):
+    """The bench room map (seeded) and the camera at the first pose."""
+    gm = gmap.from_numpy(**make_room_map(N_ROOM, np.random.default_rng(0)),
+                         max_sh_degree=0, device=dev)
+    cam = Camera.create(np.eye(3), np.zeros(3), FX, FY, (W - 1) / 2,
+                        (H - 1) / 2, W, H, device=dev)
+    return gm, cam
 
 
 def main():
@@ -2672,6 +3028,12 @@ def run(dev):
     print(f"card: {card_line()}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    # seconds from here to the end of each part of the call (phases line)
+    t_call, phases = time.perf_counter(), {}
+
+    def phase_done(name):
+        phases[name] = round(time.perf_counter() - t_call, 1)
+
     # phase 1: build every kernel from the checkout's sources
     t0 = time.perf_counter()
     info = _build.build()
@@ -2684,10 +3046,8 @@ def run(dev):
                     or "Compiling entry" in line):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
-    gm = gmap.from_numpy(**make_room_map(N_ROOM, np.random.default_rng(0)),
-                         max_sh_degree=0, device=dev)
-    cam = Camera.create(np.eye(3), np.zeros(3), FX, FY, (W - 1) / 2,
-                        (H - 1) / 2, W, H, device=dev)
+    gm, cam = room_scene(dev)
+    phase_done("build")
 
     # phase 2: kernels vs plain versions (these launches are not counted)
     cases = phase_kernels(dev, gm, cam)
@@ -2700,6 +3060,7 @@ def run(dev):
     cases_bf16, b2_bf16_cases = phase_kernels_bf16(dev, gm, cam, gt1)
     cases_mxu, b2_mxu_cases, _ = phase_kernels_mxu(dev, gm, cam, gt1)
     abl = phase_abl16(dev)
+    phase_done("kernels")
 
     # phase 3: the main path, with launch counts from 0
     reset_counts()
@@ -2720,8 +3081,11 @@ def run(dev):
     if rec["pose_err_mean_m"] > 1e-3:
         fail(f"mean translation error {rec['pose_err_mean_m']:.6f} m > 1 mm")
 
-    # where the main path's time goes, and the schedule of the JAX record
-    phase_profile(dev, gm, cam, gts, poses)
+    # torch.profiler leaves this process's host about 2x slower for the
+    # rest of its life (PERF.md §7), so every profiled pass is deferred to
+    # ``profiles``, run after the last timed one
+    profiles = [lambda: phase_profile(dev, gm, cam, gts, poses)]
+    # the schedule of the JAX record
     r05 = run_schedule("bench-r05-schedule", dev, gm, cam, gts, poses,
                        R05_KW, gt_overflow)
     if not r05["finite"] or r05["overflow"] > 0:
@@ -2731,6 +3095,13 @@ def run(dev):
         fail(f"bench-r05-schedule: mean translation error "
              f"{r05['pose_err_mean_m']:.6f} m is {r05_rel:.1%} from the JAX "
              f"tracker's {R05_JAX_ERR_MEAN_M} m (limit {R05_ERR_REL:.0%})")
+
+    # the port's bench at its defaults, in a process of its own and in
+    # this one, beside the schedule reading above; then the port's entry()
+    _, launches["bench"] = phase_bench(r05, dev)
+    launches["entry"] = phase_entry(
+        dev, next(c for c in cases if c["case"] == "entry_cloud50k"))
+    phase_done("main path, r05, bench, entry")
 
     # the main path's schedule once more on the 16x16 kernels, tracking
     # frames rendered on them: on this dense map the two tile sizes order
@@ -2764,6 +3135,7 @@ def run(dev):
     launches["render-bf16"] = render_bf16_path(dev, gm, cam, poses, gts)
     # render-mxu: likewise with mxu, B1-mxu's path
     launches["render-mxu"] = render_mxu_path(dev, gm, cam, poses)
+    phase_done("tile16, render-bf16/mxu")
 
     # phase 4: the exact-gradient paths, each with launch counts from 0
     all_kernels = KERNELS32
@@ -2775,8 +3147,9 @@ def run(dev):
     print(f"keyframe-polish: mean translation error IRLS-only "
           f"{pol['irls_pose_err_mean_m'] * 1e3:.4f} mm, polished "
           f"{pol['pose_err_mean_m'] * 1e3:.4f} mm", flush=True)
-    phase_profile(dev, gm, cam, gts, poses, name="profile-keyframe-polish",
-                  polish=True)
+    profiles.append(lambda: phase_profile(
+        dev, gm, cam, gts, poses, name="profile-keyframe-polish",
+        polish=True))
 
     reset_counts()
     exa = run_schedule("exact-pyramid", dev, gm, cam, gts, poses, EXACT_KW,
@@ -2784,8 +3157,9 @@ def run(dev):
                        reuse_plans=False)
     launches["exact-pyramid"] = read_counts("exact-pyramid", all_kernels)
     check_path("exact-pyramid", exa, max_err_m=EXACT_MAX_ERR_M)
-    phase_profile(dev, gm, cam, gts, poses, name="profile-exact-pyramid",
-                  kw=EXACT_KW, carry_H=False, reuse_plans=False)
+    profiles.append(lambda: phase_profile(
+        dev, gm, cam, gts, poses, name="profile-exact-pyramid", kw=EXACT_KW,
+        carry_H=False, reuse_plans=False))
     # once more with each frame's H handed to the next (H_in under curv
     # "fd": no probes after frame 1), as the frontend does while frames
     # converge before the iteration cap and bench.py did for BENCH_r01.json
@@ -2868,6 +3242,7 @@ def run(dev):
         reset_counts()
         run_frame1(name, fn, iters, max_err, dev, gm, cam, gts, poses)
         launches[name] = read_counts(name, all_kernels)
+    phase_done("exact, bf16/mxu paths, frame-1 trackers")
 
     # phase 5: the mapping paths, each with launch counts from 0
     kf_poses = pose_list(1 + KF_STEP * (MAP_KF - 1))[::KF_STEP]
@@ -2879,7 +3254,8 @@ def run(dev):
                                  ("mapping-tile16", True, KERNELS16,
                                   KERNELS32)):
         reset_counts()
-        maps[name] = run_mapping(name, dev, cam, kf_gts, kf_poses, t16)
+        maps[name], be = run_mapping(name, dev, cam, kf_gts, kf_poses, t16)
+        profiles.append(functools.partial(profile_mapping, name, be))
         launches[name] = read_counts(name, req, forbidden=forb)
     a, b = maps["mapping"], maps["mapping-tile16"]
     dpsnr = b["psnr_refined_mean"] - a["psnr_refined_mean"]
@@ -2892,10 +3268,31 @@ def run(dev):
         fail(f"mapping-tile16 vs mapping: PSNR {dpsnr:+.3f} dB (limit "
              f"{MAP_T16_PSNR_DB}), active {dact:+.2%} (limit "
              f"{MAP_T16_ACTIVE_REL:.0%})")
+    phase_done("mapping")
+
+    # the multi-rank paths, the ranks sharing the card: the dry run, then
+    # the mapping backend and the depth slabs on a mesh of MESH_RANKS
+    launches["multichip"] = phase_multichip(dev)
+    phase_mesh2(dev, gm, cam, kf_gts, maps["mapping"], launches)
+    phase_done("multichip, mesh2")
 
     # phase 6: the SLAM paths, each with launch counts from 0
     slam_recs, slam_launches = phase_slam(dev)
     launches.update(slam_launches)
+    phase_done("slam")
+
+    # the profiled passes, after every timed one; then the JAX record's
+    # schedule once more, read beside its reading before them
+    for prof in profiles:
+        prof()
+    after = run_schedule("bench-r05-schedule-after-profiler", dev, gm, cam,
+                         gts, poses, R05_KW, gt_overflow)
+    print(f"bench-r05-schedule after the profiled passes: "
+          f"{after['ms_per_frame']:.2f} ms/frame, host CPU "
+          f"{after['host_cpu_ms_per_frame']:.1f}; before them "
+          f"{r05['ms_per_frame']:.2f}, {r05['host_cpu_ms_per_frame']:.1f}",
+          flush=True)
+    phase_done("profiles")
 
     # phase 7: the kernels line. Launches: summed over the paths' runs.
     # Times: the 32x32 forward kernels at the shape the main path runs
@@ -3130,6 +3527,8 @@ def run(dev):
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
             shape="1216x704", bound_pct=r["group_bound_pct"]))
     print(f"launches by path: {json.dumps(launches)}", flush=True)
+    print(f"phases (s since the build began): {json.dumps(phases)}",
+          flush=True)
     check_failures()
     print(json.dumps({"kernels": kernels}), flush=True)
 

@@ -6,6 +6,8 @@ GPU raises: nothing falls back to the CPU unless the caller asks for it.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -26,3 +28,15 @@ def require_on(device: torch.device, **tensors) -> None:
     for name, x in tensors.items():
         if x is not None and x.device != device:
             raise ValueError(f"{name} is on {x.device}, expected {device}")
+
+
+def card_line() -> str:
+    """The GPU's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them (the first
+    GPU's line)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+

@@ -13,9 +13,14 @@ between schedule events, as the reference's do, and window pair plans are
 reused across batches for ``plan_reuse_iters`` iterations while the
 window and the Gaussian set stay the same.
 
-Not ported: the device mesh (``mesh_devices`` > 1 raises
-NotImplementedError). ``prewarm_mapping`` only builds the CUDA kernels:
-there are no compiles to walk ahead of the frame loop.
+With ``Training.mesh_devices`` = n > 1 the backend maps over a mesh of
+n ranks (parallel/sharding.py): every rank runs the same ``BackEnd`` on
+the same keyframe stream inside an initialized process group of n ranks
+(``make_mesh`` raises without one), the window's frame slots are padded
+to a multiple of n and split over the ranks, every slot is planned per
+batch on its rank, and the host plan cache is off. ``prewarm_mapping``
+only builds the CUDA kernels: there are no compiles to walk ahead of the
+frame loop.
 """
 
 from __future__ import annotations
@@ -44,10 +49,14 @@ class BackEnd:
         self.cam = cam_template
 
         T = config["Training"]
-        if T.get("mesh_devices", 1) > 1:
-            raise NotImplementedError(
-                "mapping over a device mesh (mesh_devices > 1) is not "
-                "ported yet (it comes in a later slice of the port)")
+        # keyframe data parallelism over a mesh of ranks; mesh_devices 1
+        # keeps the single-device path
+        n_mesh = T.get("mesh_devices", 1)
+        self.mesh = None
+        if n_mesh > 1:
+            from ..parallel.sharding import make_mesh
+            self.mesh = make_mesh(n_mesh, device=dev)
+            Log(f"mapping sharded over {n_mesh} ranks", tag="Backend")
         self.monocular = T["monocular"]
         self.init_itr_num = T["init_itr_num"]
         self.init_gaussian_update = T["init_gaussian_update"]
@@ -90,7 +99,10 @@ class BackEnd:
         self.lambda_dssim = op["lambda_dssim"]
         self.spatial_lr_scale = 5.0   # the reference's nerf normalization
         self.pair_capacity = T.get("pair_capacity", 1 << 20)
+        # window + 2 random slots, padded to a multiple of the mesh
         self.F = self.window_size + 2
+        if self.mesh is not None:
+            self.F = -(-self.F // n_mesh) * n_mesh
 
         sh_degree = config["model_params"]["sh_degree"]
         self.gm = GaussianMap.empty(T.get("initial_capacity", 1 << 16),
@@ -269,7 +281,8 @@ class BackEnd:
                     tuple(bool(v) for v in valid), self.gm.capacity,
                     self.pair_capacity, self.tile16, level)
         plans_in = None
-        if (not self.use_oracle and self._plan_cache is not None
+        if (self.mesh is None and not self.use_oracle
+                and self._plan_cache is not None
                 and self._plan_cache[0] == plan_key
                 and self._plan_cache[2] < self._plan_reuse):
             plans_in = self._plan_cache[1]
@@ -279,9 +292,11 @@ class BackEnd:
                 self.plan_stats["max_stale_iters"], self._plan_cache[2] + T)
         rows_const = all(r == randoms_per_iter[0]
                          for r in randoms_per_iter[1:])
+        # on the mesh every (padded) slot is planned, each on its rank
         n_planned = None
         if rows_const and self.map_random_per_batch and not self.use_oracle:
-            n_planned = self.window_size + 2
+            n_planned = (self.F if self.mesh is not None
+                         else self.window_size + 2)
         out = mapping.mapping_steps(
             self.gm, self.gm_adam, self.store, window_idx, valid, opt_pose,
             opt_exp, self.pose_adam, self.cam, self.bg, self._gm_lrs(),
@@ -291,7 +306,7 @@ class BackEnd:
             initialization=initialization, pair_capacity=self.pair_capacity,
             use_oracle=self.use_oracle, tile16=self.tile16,
             need_n_touched=need_nt, window_plans_in=plans_in,
-            n_planned=n_planned, level=level)
+            n_planned=n_planned, level=level, mesh=self.mesh)
         if out.window_plans is not None:
             # staleness counts every iteration since the plans were built
             if plans_in is None:

@@ -21,8 +21,17 @@ call (radius_scale 1.1, pad 6 px, opa_growth 2.23) from the entry state.
 operations, so the depth codes are stored in int32: the same values,
 dequantized the same way.
 
-The ``mesh`` argument (keyframe data parallelism across devices) raises
-NotImplementedError: it belongs to a later slice of the port.
+With ``mesh`` (parallel/sharding.py: one process per rank, every rank
+calling ``mapping_steps`` with the same arguments) the frame slots split
+into contiguous shards, one per rank: each rank renders and
+differentiates its own, and one all-reduce per iteration sums the
+parameter gradients, the loss, and the per-frame pose and exposure
+gradients, radii and screen-space gradient norms (zero in the slots of
+other ranks), after which every rank takes the same Adam steps and
+densification statistics as one rank would. The isotropic term is added
+after the sum, once. Window plans on the mesh are built by each rank for
+its own slots when every slot is planned (``n_planned == F``), and are
+not handed back for reuse.
 """
 
 from __future__ import annotations
@@ -39,6 +48,8 @@ from ..models.gaussian_map import (AdamState, GaussianMap, PARAM_FIELDS,
                                    adam_update)
 from ..ops import losses
 from ..ops.lie import pose_matrix, se3_exp
+from ..parallel.sharding import (all_reduce, check_mesh, flat_grads,
+                                 unflat_grads)
 from .render_api import make_render_plan, render
 from .tracking import _cam_level, _pool_avg, _stride_center
 
@@ -215,12 +226,14 @@ def _mapping_iter(
     optimize_exposure, cam_template, bg, gm_lrs, xyz_lr, lr_rot, lr_trans,
     rgb_boundary_threshold, n_window, alpha, monocular, initialization,
     pair_capacity, use_oracle, tile16, window_plans, level, gt_cache,
+    mesh=None,
 ) -> MapStepOut:
     """One map-optimization iteration (the reference's ``_mapping_iter``).
     ``window_idx``, ``window_valid``, ``optimize_pose`` and
     ``optimize_exposure`` are host sequences of length F; ``window_plans``
     holds plans for the leading slots (the rest plan afresh);
-    ``gt_cache`` maps a slot to its (pooled) ground truth."""
+    ``gt_cache`` maps a slot to its (pooled) ground truth. On a ``mesh``
+    this rank renders only its shard of the slots."""
     F = len(window_idx)
     C = gm.capacity
     dev = gm.device
@@ -245,8 +258,9 @@ def _mapping_iter(
     scale_vec = torch.tensor([0.5 * cam_template.width,
                               0.5 * cam_template.height], dtype=f32,
                              device=dev)
+    mine = range(F) if mesh is None else mesh.shard(F)
     for j in range(F):
-        if not window_valid[j]:
+        if not window_valid[j] or j not in mine:
             radii.append(zeros_c)
             g_norm.append(zeros_c)
             continue
@@ -287,11 +301,29 @@ def _mapping_iter(
         # scene error: rescale to the full-resolution densify units
         g_norm.append(torch.linalg.norm(m2o.grad * scale_vec, dim=-1)
                       / level)
-    iso = 10.0 * losses.isotropic_loss(params["scaling"], gm.active)
-    iso.backward()
-    loss_val = total + iso.detach()
     g_params = {f: (p.grad if p.grad is not None else torch.zeros_like(p))
                 for f, p in params.items()}
+    radii = torch.stack(radii)                                     # (F, C)
+    g_norm = torch.stack(g_norm)
+    if mesh is not None:
+        # one all-reduce: every per-frame row is zero on the ranks that
+        # do not own the frame, so the sums are the one-rank values
+        buf = all_reduce(torch.cat([
+            flat_grads(g_params), g_tau.reshape(-1), g_ea, g_eb,
+            radii.reshape(-1), g_norm.reshape(-1), total[None]]), mesh)
+        n_p = buf.numel() - (8 * F + 2 * F * C + 1)
+        g_params = unflat_grads(buf[:n_p], g_params)
+        rest = buf[n_p:]
+        g_tau = rest[:6 * F].reshape(F, 6)
+        g_ea, g_eb = rest[6 * F:7 * F], rest[7 * F:8 * F]
+        radii = rest[8 * F:8 * F + F * C].reshape(F, C)
+        g_norm = rest[8 * F + F * C:8 * F + 2 * F * C].reshape(F, C)
+        total = rest[-1]
+    # the isotropic term counts once, after the frames' sum
+    iso = 10.0 * losses.isotropic_loss(params["scaling"], gm.active)
+    (g_iso,) = torch.autograd.grad(iso, params["scaling"])
+    g_params["scaling"] = g_params["scaling"] + g_iso
+    loss_val = total + iso.detach()
 
     # Gaussian Adam step (xyz lr from the schedule)
     lrs = dict(gm_lrs)
@@ -300,8 +332,6 @@ def _mapping_iter(
         new_gm, new_gm_adam = adam_update(gm, g_params, gm_adam, lrs)
 
         # densification statistics and max radii over the valid frames
-        radii = torch.stack(radii)                                 # (F, C)
-        g_norm = torch.stack(g_norm)
         wv = torch.as_tensor(np.asarray(window_valid, bool), device=dev)
         upd = (radii > 0) & wv[:, None] & new_gm.active[None, :]
         zero = torch.zeros_like(radii)
@@ -388,11 +418,14 @@ def mapping_steps(
     every render. ``level`` > 1 renders at 1/level resolution against the
     pooled ground truth with the blur-matched low-pass. With
     ``need_n_touched`` the window's n_touched is rendered at the final
-    state (``window_visibility``)."""
+    state (``window_visibility``). With ``mesh`` (a
+    ``parallel.sharding.Mesh``; every rank calls this with the same
+    arguments) each rank renders its shard of the F slots, F a multiple
+    of the mesh size; the plans are per rank (built when ``n_planned ==
+    F``), so ``window_plans_in`` is not taken there and none are
+    returned."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mapping over a device mesh is not ported yet (keyframe data "
-            "parallelism comes in a later slice of the port)")
+        check_mesh(mesh)
     dev = gm.device
     rows = _host(window_idx).astype(np.int64)
     valid = [bool(v) for v in _host(window_valid)]
@@ -402,7 +435,17 @@ def mapping_steps(
         n_planned = n_window
 
     window_part = plans = None
-    if not use_oracle:
+    if mesh is not None:
+        if window_plans_in is not None:
+            raise ValueError("window_plans_in is not taken on a mesh (each "
+                             "rank plans its own slots)")
+        mine = mesh.shard(len(valid))
+        if not use_oracle and n_planned == len(valid):
+            plans = _window_plans(
+                gm, store, rows[0], [v and j in mine
+                                     for j, v in enumerate(valid)],
+                _cam_level(cam_template, level), pair_capacity, tile16, dev)
+    elif not use_oracle:
         cam_lvl = _cam_level(cam_template, level)
         if window_plans_in is not None:
             window_part = list(window_plans_in)
@@ -427,7 +470,7 @@ def mapping_steps(
             opt_exp, cam_template, bg, gm_lrs, xyz_lrs[i], lr_rot, lr_trans,
             rgb_boundary_threshold, n_window, alpha, monocular,
             initialization, pair_capacity, use_oracle, tile16, plans, level,
-            gt_cache)
+            gt_cache, mesh)
         gm, gm_adam, store, pose_adam = (out.gm, out.gm_adam, out.store,
                                          out.pose_adam)
 
@@ -435,7 +478,8 @@ def mapping_steps(
         # n_touched at the final state, for visibility and covisibility
         nt = window_visibility(gm, store, rows[-1], valid, cam_template, bg,
                                pair_capacity=pair_capacity,
-                               use_oracle=use_oracle, tile16=tile16)
+                               use_oracle=use_oracle, tile16=tile16,
+                               mesh=mesh)
     else:
         nt = torch.zeros(len(valid), gm.capacity, dtype=torch.int32,
                          device=dev)
@@ -453,12 +497,17 @@ def window_visibility(
     pair_capacity: int = 1 << 20,
     use_oracle: bool = False,
     tile16: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """(F, C) int32 per-frame n_touched at the current map and poses
-    (zeros for an invalid slot): the occlusion-aware visibility."""
+    (zeros for an invalid slot): the occlusion-aware visibility. On a
+    ``mesh`` each rank renders its shard and one all-reduce assembles the
+    rows on every rank."""
     rows = []
-    for s, v in zip(_host(window_idx).tolist(), _host(window_valid)):
-        if not v:
+    slots = _host(window_idx).tolist()
+    mine = range(len(slots)) if mesh is None else mesh.shard(len(slots))
+    for j, (s, v) in enumerate(zip(slots, _host(window_valid))):
+        if not v or j not in mine:
             rows.append(torch.zeros(gm.capacity, dtype=torch.int32,
                                     device=gm.device))
             continue
@@ -466,7 +515,10 @@ def window_visibility(
         rows.append(render(gm, cam, None, bg, pair_capacity=pair_capacity,
                            use_oracle=use_oracle, tile16=tile16,
                            device=gm.device).n_touched)
-    return torch.stack(rows)
+    nt = torch.stack(rows)
+    if mesh is not None:
+        all_reduce(nt, mesh)
+    return nt
 
 
 def _refinement_grads(gm, store, idx, cam_template, bg, lambda_dssim,

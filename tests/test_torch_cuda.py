@@ -737,3 +737,20 @@ def test_subtile_forward16_matches_plain_on_hard_plan(cuda, with_ntouch,
         assert torch.equal(c, b)
     if with_ntouch:
         assert float(got.n_touched_pairs.sum()) > 0
+
+
+def test_entry_on_card_matches_cpu(cuda):
+    """graft_entry.entry()'s render on the card (B1, one launch) against
+    the same entry on the CPU (plain versions), at a small cloud."""
+    from gs_slam_analytica_jacobian_tpu_torch import graft_entry
+    kw = dict(n=5000, width=320, height=180, focal=160.0)
+    fn, args = graft_entry.entry(device=cuda, **kw)
+    before = tk.composite32_fwd_ntouch.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert tk.composite32_fwd_ntouch.launches == before + 1
+    fn_c, args_c = graft_entry.entry(device="cpu", **kw)
+    for g, w in zip(got, fn_c(*args_c)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), atol=1e-4,
+                                   rtol=0)

@@ -39,11 +39,16 @@ SYSTEM_MODULES = ("utils.config", "utils.datasets", "utils.eval",
                   "slam.driver", "slam_main")
 # the modules of the mxu slice (the browser viewer, the B5 harness)
 MXU_SLICE_MODULES = ("gui.web", "scripts.abl16")
+# the last modules of the JAX package: the bench and entry points, the
+# keyframe data-parallel and depth-slab meshes
+LAST_SLICE_MODULES = ("bench", "graft_entry", "parallel.sharding",
+                      "parallel.slab", "ops.launches")
 
 
 def test_port_imports_no_jax():
     mods = _port_modules()
-    for m in MAPPING_MODULES + SYSTEM_MODULES + MXU_SLICE_MODULES:
+    for m in (MAPPING_MODULES + SYSTEM_MODULES + MXU_SLICE_MODULES
+              + LAST_SLICE_MODULES):
         assert f"{PORT.name}.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -146,21 +151,33 @@ def test_entry_points_default_to_cuda_and_raise_without_gpu(monkeypatch):
 
 def test_mapping_entry_points_default_to_cuda(monkeypatch):
     """The mapping slice's entry points take ``device=None`` as CUDA and
-    raise without a GPU; the device mesh raises NotImplementedError."""
+    raise without a GPU. Without an initialized process group of the
+    right size the mesh raises a clear error (make_mesh, BackEnd with
+    mesh_devices 2, mapping_steps(mesh=)): nothing falls back to one
+    rank."""
+    import torch.distributed as dist
     from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera
+    from gs_slam_analytica_jacobian_tpu_torch.parallel import sharding
     from gs_slam_analytica_jacobian_tpu_torch.slam import mapping
     from gs_slam_analytica_jacobian_tpu_torch.slam.backend import BackEnd
 
+    assert not (dist.is_available() and dist.is_initialized())
     cam = Camera.create(np.eye(3), np.zeros(3), 30.0, 30.0, 31.5, 15.5, 64,
                         32, device="cpu")
     cfg = {"Dataset": {}, "opt_params": {}, "model_params": {},
            "Training": {"mesh_devices": 2}}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
+        sharding.make_mesh(2, device="cpu")
+    with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         BackEnd(cfg, cam, device="cpu")
-    with pytest.raises(NotImplementedError):
-        mapping.mapping_steps(None, None, None, [[0]], [True], [False],
-                              [False], None, cam, None, {}, [1e-3], 0.0,
-                              0.0, 0.01, 1, mesh=object())
+    args = (None, None, None, [[0]], [True], [False], [False], None, cam,
+            None, {}, [1e-3], 0.0, 0.0, 0.01, 1)
+    with pytest.raises(TypeError, match="Mesh"):
+        mapping.mapping_steps(*args, mesh=object())
+    mesh = sharding.Mesh(group=None, rank=0, size=2,
+                         device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(RuntimeError, match="not initialized"):
+        mapping.mapping_steps(*args, mesh=mesh)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         mapping.KFStore.empty(2, 8, 8)
@@ -195,3 +212,29 @@ def test_system_modules_import_without_optional_packages():
                          timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_last_slice_entry_points_default_to_cuda(monkeypatch):
+    """The bench, entry(), the dry run and the rank spawner take
+    ``device=None`` as CUDA and raise without a GPU (before any rank is
+    spawned); the slab functions need an initialized mesh."""
+    from gs_slam_analytica_jacobian_tpu_torch import bench, graft_entry
+    from gs_slam_analytica_jacobian_tpu_torch.parallel import sharding, slab
+
+    mesh = sharding.Mesh(group=None, rank=0, size=2,
+                         device=torch.device("cpu"), backend="gloo")
+    with pytest.raises(RuntimeError, match="not initialized"):
+        slab.slab_render(mesh, None, None, None)
+    with pytest.raises(RuntimeError, match="not initialized"):
+        slab.slab_mapping_loss_and_grads(mesh, None, None, None, None, None)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.run_bench(64, 64, 32, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry(n=8, width=64, height=32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharding.run_ranks(print, 2)
