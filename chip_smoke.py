@@ -217,7 +217,14 @@ kernels launched on every rank, the ranks' final states equal, PSNR
 within MESH_PSNR_DB and active Gaussians within MESH_ACTIVE_REL of the
 mapping path's before its refinement); ``slab-mesh2`` renders the room
 map in MESH_RANKS depth slabs with its mapping-loss gradients (tiled),
-against the one-rank render and gradients (SLAB_*). A failed gate is printed and the run
+against the one-rank render and gradients (SLAB_*). The ranks of
+mapping-mesh2 run with GS_SLAM_NAN_CHECK=1 (the backend's finiteness
+check after every batch and densify / prune; each rank must run some).
+After the mapping path, ``depth_reg`` renders its last keyframe's depth
+from the final map (B1') and holds losses.depth_reg on the card against
+the same tensors' on the CPU (DEPTH_REG_RTOL). The kernels line takes
+each row's source= and replaces= from ops/launches.py PALLAS_SITES.
+A failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
 """
@@ -474,6 +481,9 @@ SLAB_IMG_TOL = 1e-4
 SLAB_STOP_T = 1e-2
 SLAB_GRAD_MIN_COS = 0.999
 SLAB_GRAD_MAX_REL = 0.05
+# depth_reg of the mapping path's last keyframe on the card against the
+# same tensors' on the CPU (sums in another order)
+DEPTH_REG_RTOL = 1e-5
 
 # The bf16 tracker paths (kernel_bf16): timed passes, each followed by
 # the same passes of its f32 path (uncounted), so the two walls are read
@@ -2679,6 +2689,31 @@ def run_mapping(name, dev, cam, kf_gts, kf_poses, tile16, mesh=None):
     return rec, be
 
 
+@torch.no_grad()
+def depth_reg_check(name, be, kf_gts):
+    """losses.depth_reg of the last keyframe's depth, rendered from the
+    backend's final map at its stored pose (B1', uncounted), against that
+    keyframe's ground-truth image: on the card, and on the CPU from the
+    same tensors."""
+    u = MAP_KF - 1
+    s = be.uid_to_slot[u]
+    cam = be.cam.replace(R=be.store.R[s], t=be.store.t[s])
+    with uncounted():
+        out = render(be.gm, cam, None, be.bg, pair_capacity=be.pair_capacity,
+                     tile16=be.tile16, need_n_touched=False, device=be.device)
+    depth, img = out.depth, kf_gts[u][0]
+    card = float(losses.depth_reg(depth, img))
+    cpu = float(losses.depth_reg(depth.cpu(), img.cpu()))
+    rel = abs(card - cpu) / max(abs(cpu), 1e-30)
+    print("depth_reg " + json.dumps(dict(
+        path=name, keyframe=u, shape=list(depth.shape), card_value=card,
+        cpu_value=cpu, rel_diff=rel, rtol=DEPTH_REG_RTOL,
+        card=card_line())), flush=True)
+    if not (np.isfinite(card) and card > 0 and rel <= DEPTH_REG_RTOL):
+        fail(f"depth_reg on {name}: card {card!r} against CPU {cpu!r} "
+             f"(rel {rel:.3g}, limit {DEPTH_REG_RTOL})")
+
+
 def profile_mapping(name, be):
     """One keyframe of a mapping path under torch.profiler (profile_call):
     the backend's last window mapped once more, after every timed pass
@@ -2862,10 +2897,24 @@ def mesh2_rank(device="cuda"):
     kf_poses = pose_list(1 + KF_STEP * (MAP_KF - 1))[::KF_STEP]
     with uncounted():
         kf_gts, _ = render_ground_truth(dev, gm, cam, kf_poses)
+    # phase_mesh2 starts the ranks with GS_SLAM_NAN_CHECK=1: every batch
+    # and densify / prune of the backend runs _assert_finite, counted here
+    checks = [0]
+    assert_finite = BackEnd._assert_finite
+
+    def counted(be, tag):
+        checks[0] += 1
+        return assert_finite(be, tag)
+
+    BackEnd._assert_finite = counted
     reset_counts()
-    mapping_rec, _ = run_mapping("mapping-mesh2", dev, cam, kf_gts,
-                                 kf_poses, False, mesh=MESH_RANKS)
+    try:
+        mapping_rec, _ = run_mapping("mapping-mesh2", dev, cam, kf_gts,
+                                     kf_poses, False, mesh=MESH_RANKS)
+    finally:
+        BackEnd._assert_finite = assert_finite
     mapping_rec["launches"] = {n: count_of(n) for n in WRAPPERS}
+    mapping_rec["nan_checks"] = checks[0]
     mesh = sharding.make_mesh(MESH_RANKS, device=dev)
     bg = torch.zeros(3, device=dev)
     reset_counts()
@@ -2896,6 +2945,10 @@ def phase_mesh2(dev, gm, cam, kf_gts, one, launches):
         ref = slab_one_rank(dev, gm, cam, kf_gts[1])
         ref_map_order = slab_one_rank(dev, gm, cam, kf_gts[1],
                                       slab_order=False)
+    # the ranks (start method spawn) import the backend afresh and read
+    # the NaN-check switch; this process's tracked paths stay unchecked
+    saved = os.environ.get("GS_SLAM_NAN_CHECK")
+    os.environ["GS_SLAM_NAN_CHECK"] = "1"
     t0 = time.perf_counter()
     try:
         ranks = sharding.run_ranks(mesh2_rank, MESH_RANKS, (dev.type,),
@@ -2903,6 +2956,11 @@ def phase_mesh2(dev, gm, cam, kf_gts, one, launches):
     except Exception as e:
         fail(f"mapping-mesh2 / slab-mesh2: {type(e).__name__}: {e}")
         return
+    finally:
+        if saved is None:
+            del os.environ["GS_SLAM_NAN_CHECK"]
+        else:
+            os.environ["GS_SLAM_NAN_CHECK"] = saved
     wall = time.perf_counter() - t0
     for r in ranks:
         for msg in r["failures"]:
@@ -2934,10 +2992,15 @@ def phase_mesh2(dev, gm, cam, kf_gts, one, launches):
           f"{m['kf_map_s_median']:.4f} s against {one['kf_map_s_median']:.4f}"
           f", window loss {m['window_loss_first']:.6f} -> "
           f"{m['window_loss_final']:.6f}; ranks' states equal "
-          f"{len(digests) == 1}; {wall:.1f} s with the ranks' start",
+          f"{len(digests) == 1}; {wall:.1f} s with the ranks' start; "
+          f"GS_SLAM_NAN_CHECK=1, NaN checks by rank "
+          f"{[r['mapping']['nan_checks'] for r in ranks]}; {card_line()}",
           flush=True)
     if len(digests) != 1:
         fail("mapping-mesh2: the ranks' final states differ")
+    for r in ranks:
+        if not r["mapping"]["nan_checks"]:
+            fail(f"mapping-mesh2: rank {r['rank']} ran no NaN check")
     if abs(dpsnr) > MESH_PSNR_DB or abs(dact) > MESH_ACTIVE_REL:
         fail(f"mapping-mesh2 vs mapping: PSNR {dpsnr:+.3f} dB (limit "
              f"{MESH_PSNR_DB}), active {dact:+.2%} (limit "
@@ -3257,6 +3320,8 @@ def run(dev):
         maps[name], be = run_mapping(name, dev, cam, kf_gts, kf_poses, t16)
         profiles.append(functools.partial(profile_mapping, name, be))
         launches[name] = read_counts(name, req, forbidden=forb)
+        if name == "mapping":
+            depth_reg_check(name, be, kf_gts)
     a, b = maps["mapping"], maps["mapping-tile16"]
     dpsnr = b["psnr_refined_mean"] - a["psnr_refined_mean"]
     dact = b["active"]["refined"] / a["active"]["refined"] - 1.0
@@ -3301,10 +3366,16 @@ def run(dev):
     # cotangent; the 16x16 kernels at the mapping shapes: B3' and B4 on
     # the mapping plan (B4 under the mapping loss's cotangent), B3 on a
     # fresh plan (window visibility).
-    pallas = "gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py"
-    pallas16 = "gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel16.py"
-    csrc = "gs_slam_analytica_jacobian_tpu_torch/csrc/"
+    # Each row's source= and replaces= come from the port's registry of
+    # the JAX package's Pallas sites (ops/launches.py PALLAS_SITES).
     total = {n: sum(c[n] for c in launches.values()) for n in WRAPPERS}
+
+    def site(name, variant="", yardstick=False):
+        where, src, note = path_launches.site_of(name)
+        note = ", ".join(n for n in (note, variant) if n)
+        note = "; ".join(n for n in (note, yardstick and "yardstick") if n)
+        return dict(source="gs_slam_analytica_jacobian_tpu_torch/" + src,
+                    replaces=where + (f" ({note})" if note else ""))
 
     def pick(with_nt):
         return next(c for c in cases
@@ -3324,12 +3395,11 @@ def run(dev):
                     walk_bound_ms=c["walk_bound_ms"])
 
     kernels = []
-    for name, with_nt, line in (("composite32_fwd", False, 662),
-                                ("composite32_fwd_ntouch", True, 642)):
+    for name, with_nt in (("composite32_fwd", False),
+                          ("composite32_fwd_ntouch", True)):
         c = pick(with_nt)
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile32_fwd_subtile.cu",
-            replaces=f"{pallas}:{line}", launches=total[name],
+            name=name, route="cuda", **site(name), launches=total[name],
             max_abs_err=max(c["max_abs_err"].values()),
             ms=c["ms"], plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=None, shape=c["shape"],
@@ -3337,8 +3407,7 @@ def run(dev):
     c = next(c for c in b2_cases
              if c["case"] == "room_s1_polish" and c["cotangent"] == "loss")
     kernels.append(dict(
-        name="composite32_bwd", route="cuda",
-        source=csrc + "tile32_bwd_subtile.cu", replaces=f"{pallas}:699",
+        name="composite32_bwd", route="cuda", **site("composite32_bwd"),
         launches=total["composite32_bwd"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
@@ -3347,15 +3416,14 @@ def run(dev):
     # B3' and B3 (sub-tile) with the one-thread-per-pixel design's time on
     # the same plan in the same call (walk_ms) and the cells they evaluate
     b3 = {}
-    for name, case, with_nt, line in (
-            ("composite16_fwd", "room_s1_map16", False, 582),
-            ("composite16_fwd_ntouch", "room_s1_fresh16", True, 562)):
+    for name, case, with_nt in (
+            ("composite16_fwd", "room_s1_map16", False),
+            ("composite16_fwd_ntouch", "room_s1_fresh16", True)):
         c = b3[with_nt] = next(
             c for c in cases16 if c["case"] == case
             and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile16_fwd_subtile.cu",
-            replaces=f"{pallas16}:{line}", launches=total[name],
+            name=name, route="cuda", **site(name), launches=total[name],
             max_abs_err=max(c["max_abs_err"].values()),
             nt_mismatch=c["nt_mismatch"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
@@ -3367,8 +3435,7 @@ def run(dev):
     # same plan in the same call (walk_ms) and the cells it evaluates
     c = next(c for c in b4_cases if c["cotangent"] == "loss")
     kernels.append(dict(
-        name="composite16_bwd", route="cuda",
-        source=csrc + "tile16_bwd_subtile.cu", replaces=f"{pallas16}:622",
+        name="composite16_bwd", route="cuda", **site("composite16_bwd"),
         launches=total["composite16_bwd"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
@@ -3385,15 +3452,14 @@ def run(dev):
     # the f32 kernels' operation count (scalar bfloat16 arithmetic, no
     # bf16x2 packing)
     bf16_fwd = {}
-    for name, with_nt, line in (("composite32_fwd_bf16", False, 662),
-                                ("composite32_fwd_ntouch_bf16", True, 642)):
+    for name, with_nt in (("composite32_fwd_bf16", False),
+                          ("composite32_fwd_ntouch_bf16", True)):
         c = bf16_fwd[with_nt] = next(
             c for c in cases_bf16 if c["case"] == "room_s2_bf16"
             and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile32_fwd_subtile.cu",
-            replaces=f"{pallas}:{line} (bf16=True, _chunk_terms :160-175)",
-            launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
+            name=name, route="cuda", **site(name), launches=total[name],
+            max_abs_err=max(c["max_abs_err"].values()),
             nt_mismatch=c["nt_mismatch"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
             f32_ms=c["f32_ms"], shape=c["shape"], **subtile_keys(c)))
@@ -3405,8 +3471,7 @@ def run(dev):
                        and c["cotangent"] == "loss")
     kernels.append(dict(
         name="composite32_bwd_bf16", route="cuda",
-        source=csrc + "tile32_bwd_subtile.cu",
-        replaces=f"{pallas}:699 (bf16=True, :488-508)",
+        **site("composite32_bwd_bf16"),
         launches=total["composite32_bwd_bf16"], max_abs_err=c["max_abs_err"],
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
@@ -3420,17 +3485,14 @@ def run(dev):
     # bound charges the tensor cores' share at the TF32 peak beside the
     # CUDA cores' at the FP32 peak
     mxu_fwd = {}
-    for name, with_nt, line in (("composite32_fwd_mxu", False, 662),
-                                ("composite32_fwd_ntouch_mxu", True, 642)):
+    for name, with_nt in (("composite32_fwd_mxu", False),
+                          ("composite32_fwd_ntouch_mxu", True)):
         c = mxu_fwd[with_nt] = next(
             c for c in cases_mxu if c["case"] == "room_s2_mxu"
             and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
-            name=name, route="cuda",
-            source=csrc + "tile32_fwd_subtile_mxu.cu",
-            replaces=f"{pallas}:{line} (mxu=True, _mxu_power :96-128, "
-                     "log-space T :279-289)",
-            launches=total[name], max_abs_err=max(c["max_abs_err"].values()),
+            name=name, route="cuda", **site(name), launches=total[name],
+            max_abs_err=max(c["max_abs_err"].values()),
             p999_abs_err=c["p999_abs_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"],
@@ -3449,10 +3511,8 @@ def run(dev):
         c = b2_mxu[name] = next(c for c in b2_mxu_cases if c["case"] == case
                                 and c["cotangent"] == "loss")
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + "tile32_bwd_subtile.cu",
-            replaces=f"{pallas}:699 (mxu=True, :387-398"
-                     + (", bf16 :488-508)" if "bf16" in name else ")"),
-            launches=total[name], max_abs_err=c["max_abs_err"],
+            name=name, route="cuda", **site(name), launches=total[name],
+            max_abs_err=c["max_abs_err"],
             max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
@@ -3463,51 +3523,43 @@ def run(dev):
     f32_fwd = pick(False)
     b2 = next(c for c in b2_cases
               if c["case"] == "room_s1_polish" and c["cotangent"] == "loss")
-    for name, c, src, line, err, ms in (
-            ("composite32_fwd_tile1024", f32_fwd, "tile_kernel2_fwd.cu",
-             f"{pallas}:662", f32_fwd["tile1024_max_abs_err"],
-             f32_fwd["tile1024_ms"]),
-            ("composite32_bwd_tile1024", b2, "tile_kernel2_bwd.cu",
-             f"{pallas}:699", b2["tile1024_max_abs_err"], b2["tile1024_ms"]),
+    for name, c, err, ms in (
+            ("composite32_fwd_tile1024", f32_fwd,
+             f32_fwd["tile1024_max_abs_err"], f32_fwd["tile1024_ms"]),
+            ("composite32_bwd_tile1024", b2, b2["tile1024_max_abs_err"],
+             b2["tile1024_ms"]),
             ("composite32_fwd_mxu_tile1024", mxu_fwd[False],
-             "tile_kernel2_fwd.cu", f"{pallas}:662 (mxu=True)",
              mxu_fwd[False]["tile1024_max_abs_err"],
              mxu_fwd[False]["tile1024_ms"]),
-            ("composite16_bwd_walk", b4, "tile_kernel16_bwd.cu",
-             f"{pallas16}:622", b4["walk_max_abs_err"], b4["walk_ms"]),
+            ("composite16_bwd_walk", b4, b4["walk_max_abs_err"],
+             b4["walk_ms"]),
             ("composite32_fwd_bf16_tile1024", bf16_fwd[False],
-             "tile_kernel2_fwd.cu", f"{pallas}:662 (bf16=True)",
              bf16_fwd[False]["tile1024_max_abs_err"],
              bf16_fwd[False]["tile1024_ms"]),
-            ("composite16_fwd_walk", b3[False], "tile_kernel16_fwd.cu",
-             f"{pallas16}:582", b3[False]["walk_max_abs_err"],
-             b3[False]["walk_ms"]),
-            ("composite32_bwd_bf16_tile1024", b2_bf16, "tile_kernel2_bwd.cu",
-             f"{pallas}:699 (bf16=True)", b2_bf16["tile1024_max_abs_err"],
-             b2_bf16["tile1024_ms"]),
+            ("composite16_fwd_walk", b3[False],
+             b3[False]["walk_max_abs_err"], b3[False]["walk_ms"]),
+            ("composite32_bwd_bf16_tile1024", b2_bf16,
+             b2_bf16["tile1024_max_abs_err"], b2_bf16["tile1024_ms"]),
             ("composite32_bwd_mxu_tile1024", b2_mxu["composite32_bwd_mxu"],
-             "tile_kernel2_bwd.cu", f"{pallas}:699 (mxu=True)",
              b2_mxu["composite32_bwd_mxu"]["tile1024_max_abs_err"],
              b2_mxu["composite32_bwd_mxu"]["tile1024_ms"]),
             ("composite32_bwd_bf16_mxu_tile1024",
-             b2_mxu["composite32_bwd_bf16_mxu"], "tile_kernel2_bwd.cu",
-             f"{pallas}:699 (mxu=True, bf16=True)",
+             b2_mxu["composite32_bwd_bf16_mxu"],
              b2_mxu["composite32_bwd_bf16_mxu"]["tile1024_max_abs_err"],
              b2_mxu["composite32_bwd_bf16_mxu"]["tile1024_ms"])):
         kernels.append(dict(
-            name=name, route="cuda", source=csrc + src,
-            replaces=line + " (yardstick)", launches=total[name],
-            max_abs_err=err, ms=ms, plain_ms=c["plain_ms"],
-            bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
-            shape=c["shape"]))
+            name=name, route="cuda", **site(name, yardstick=True),
+            launches=total[name], max_abs_err=err, ms=ms,
+            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
+            bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
     # B5: one entry per variant, at the script's shape (ms and group_ms
     # in turns); launches from the script's own run (phase_abl16); then
     # the yardsticks, the first port's design (launched by no run)
     for v, r in abl.items():
         kernels.append(dict(
-            name=f"abl16_{v}", route="cuda", source=csrc + "abl16.cu",
-            replaces="scripts/abl16.py:237 (make_kernel :55, "
-                     f"variant {v})", launches=r["launches"],
+            name=f"abl16_{v}", route="cuda",
+            **site("scripts/abl16.py:run", f"variant {v}"),
+            launches=r["launches"],
             max_abs_err=r["max_abs_err"], max_rel_err=r["max_rel_err"],
             ms=r["ms"], us_per_chunk=r["us_per_chunk"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -3516,9 +3568,9 @@ def run(dev):
             bound_pct=r["bound_pct"]))
     for v, r in abl.items():
         kernels.append(dict(
-            name=f"abl16_{v}_group", route="cuda", source=csrc + "abl16.cu",
-            replaces="scripts/abl16.py:237 (make_kernel :55, "
-                     f"variant {v}; yardstick)",
+            name=f"abl16_{v}_group", route="cuda",
+            **site("scripts/abl16.py:run(design='group')", f"variant {v}",
+                   yardstick=True),
             launches=r["group_launches"],
             max_abs_err=r["group_max_abs_err"],
             max_rel_err=r["group_max_rel_err"],

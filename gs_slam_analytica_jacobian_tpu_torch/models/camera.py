@@ -74,6 +74,14 @@ class Camera:
             width=int(width), height=int(height), znear=float(znear),
             zfar=float(zfar))
 
+    @staticmethod
+    def from_w2c(w2c, fx, fy, cx, cy, width, height, **kw) -> "Camera":
+        """A Camera from a 4x4 world-to-camera matrix (numpy); ``kw``
+        (znear, zfar, device) goes to ``create``."""
+        w2c = np.asarray(w2c)
+        return Camera.create(w2c[:3, :3], w2c[:3, 3], fx, fy, cx, cy,
+                             width, height, **kw)
+
 
 @dataclasses.dataclass(frozen=True)
 class PoseState:

@@ -58,3 +58,8 @@ def world_to_view(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
 def camera_center(w2c: torch.Tensor) -> torch.Tensor:
     """Camera position in world coords: c = -R^T t."""
     return -w2c[:3, :3].T @ w2c[:3, 3]
+
+
+def ndc_to_pix(v: torch.Tensor, S) -> torch.Tensor:
+    """NDC [-1, 1] -> pixel coordinates (reference auxiliary.h:41-44)."""
+    return ((v + 1.0) * S - 1.0) * 0.5

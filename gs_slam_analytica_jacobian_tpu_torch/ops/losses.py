@@ -1,6 +1,6 @@
-"""Tracking and mapping losses, Scharr gradient masks, median depth and
-the L1 / PSNR / SSIM metrics (torch port of ops/losses.py). Images are
-(C, H, W)."""
+"""Tracking and mapping losses, Scharr gradient masks, the edge-aware
+depth regularizer, median depth and the L1 / PSNR / SSIM metrics (torch
+port of ops/losses.py). Images are (C, H, W)."""
 
 from __future__ import annotations
 
@@ -37,6 +37,29 @@ def image_gradient_mask(image: torch.Tensor, eps: float = 0.01):
     p = (torch.abs(image) > eps).to(image.dtype)
     s_v = _conv2d_same_reflect(p, ones)
     return s_v == 9.0, s_v == 9.0
+
+
+def depth_reg(depth: torch.Tensor, gt_image: torch.Tensor,
+              huber_eps: float = 0.1, mask=None) -> torch.Tensor:
+    """Edge-aware depth smoothness (reference slam_utils.py:41-53): the
+    mean of |d depth| weighted by exp(-10 (d gray)^2) over the 3x3
+    all-valid depth mask, v and h terms summed. ``huber_eps`` and
+    ``mask`` are accepted and unused, as in the reference.
+    depth: (1, H, W); gt_image: (C, H, W)."""
+    del huber_eps, mask
+    mask_v, mask_h = image_gradient_mask(depth)
+    gray = torch.mean(gt_image, dim=0, keepdim=True)
+    gray_grad_v, gray_grad_h = image_gradient(gray)
+    depth_grad_v, depth_grad_h = image_gradient(depth)
+    mv = mask_v.to(depth.dtype)
+    mh = mask_h.to(depth.dtype)
+    w_v = torch.exp(-10.0 * gray_grad_v ** 2)
+    w_h = torch.exp(-10.0 * gray_grad_h ** 2)
+    # the masked means (the reference boolean-indexes, then takes .mean())
+    n_v = torch.clamp(torch.sum(mv), min=1.0)
+    n_h = torch.clamp(torch.sum(mh), min=1.0)
+    return (torch.sum(w_h * torch.abs(depth_grad_h) * mh) / n_h
+            + torch.sum(w_v * torch.abs(depth_grad_v) * mv) / n_v)
 
 
 def _median_last(x: torch.Tensor) -> torch.Tensor:

@@ -78,3 +78,8 @@ def sh_to_color(deg: int, sh: torch.Tensor, dirs: torch.Tensor
 def rgb_to_sh0(rgb: torch.Tensor) -> torch.Tensor:
     """Inverse of the DC band (RGB2SH)."""
     return (rgb - 0.5) / SH_C0
+
+
+def sh0_to_rgb(sh0: torch.Tensor) -> torch.Tensor:
+    """The DC band's color (SH2RGB), the inverse of ``rgb_to_sh0``."""
+    return sh0 * SH_C0 + 0.5

@@ -21,10 +21,16 @@ to a multiple of n and split over the ranks, every slot is planned per
 batch on its rank, and the host plan cache is off. ``prewarm_mapping``
 only builds the CUDA kernels: there are no compiles to walk ahead of the
 frame loop.
+
+With ``GS_SLAM_NAN_CHECK=1`` in the environment at import (the JAX
+package's switch), every map batch and every densify / prune ends with
+``_assert_finite``: the active Gaussians and the keyframe poses must be
+finite, or AssertionError((tag, field)). Off, it costs nothing.
 """
 
 from __future__ import annotations
 
+import os
 import random
 import time
 from typing import Dict, List, Optional
@@ -40,6 +46,8 @@ from ..ops.lie import pose_matrix
 from ..utils.logging import Log
 from . import mapping, seeding
 from .mapping import KFStore, PoseAdamState
+
+_NAN_CHECK = os.environ.get("GS_SLAM_NAN_CHECK") == "1"
 
 
 class BackEnd:
@@ -317,7 +325,24 @@ class BackEnd:
         self.last_sent += T
         self.gm, self.gm_adam = out.gm, out.gm_adam
         self.store, self.pose_adam = out.store, out.pose_adam
+        if _NAN_CHECK:
+            self._assert_finite(f"after _run_batch T={T} "
+                                f"init={initialization}")
         return out
+
+    def _assert_finite(self, tag):
+        """AssertionError((tag, field)) unless the active Gaussians'
+        parameters and the keyframe poses are finite: one flag per field
+        on the device, one host read."""
+        act = self.gm.active
+        fields = ("xyz", "scaling", "rotation", "opacity", "features_dc")
+        flags = [(torch.isfinite(x) | ~act.view(-1, *[1] * (x.dim() - 1))
+                  ).all() for x in (getattr(self.gm, f) for f in fields)]
+        flags += [torch.isfinite(self.store.R).all(),
+                  torch.isfinite(self.store.t).all()]
+        for f, ok in zip(fields + ("R", "t"), torch.stack(flags).tolist()):
+            if not ok:
+                raise AssertionError((tag, f))
 
     def _next_event(self, it: int) -> int:
         """The first densify or opacity-reset iteration after ``it``."""
@@ -404,6 +429,8 @@ class BackEnd:
         self._invalidate_plans()
         if int(ov) > 0:
             Log(f"densify overflow {int(ov)}", tag="Backend")
+        if _NAN_CHECK:
+            self._assert_finite("after densify_and_prune")
 
     def _covisibility_prune(self, window_uids, n_touched):
         """The reference's covisibility prune (prune_mode slam/odometry),
