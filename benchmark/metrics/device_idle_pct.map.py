@@ -1,0 +1,8 @@
+"""The share of the traced part of the mapping window in which no
+operation ran on the device, in per cent: 100 (1 - busy / window)."""
+
+
+def read(run):
+    if run.trace is None or not run.trace["window_s"]:
+        return None
+    return 100.0 * (1.0 - run.trace["busy_s"] / run.trace["window_s"])
