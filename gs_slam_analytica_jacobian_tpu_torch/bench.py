@@ -35,37 +35,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 from typing import Mapping, Optional
 
 import numpy as np
 import torch
-
-# the per-cell cost of the forward compositing kernels' walk (FP32
-# operations on a walked (pair, pixel) cell), as PERF.md's kernel table
-# charges B1'
-OPS_PER_WALKED_CELL = 25.0
-
-
-def fp32_peak(device: torch.device):
-    """(FP32 operations/s, how it was worked out) of a CUDA device: SMs x
-    128 FP32 lanes x 2 (a fused multiply-add) x the SM clock's maximum.
-    The clock comes from the device properties where torch exposes it,
-    else from nvidia-smi (``clocks.max.sm``)."""
-    props = torch.cuda.get_device_properties(device)
-    mhz = getattr(props, "clock_rate", 0) / 1e3
-    if not mhz:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=clocks.max.sm",
-             "--format=csv,noheader,nounits", "-i",
-             str(device.index or 0)], capture_output=True, text=True,
-            check=True, timeout=60)
-        mhz = float(out.stdout.strip().splitlines()[0])
-    sms = props.multi_processor_count
-    peak = sms * 128 * 2 * mhz * 1e6
-    return peak, (f"{props.name}: {sms} SMs x 128 FP32 lanes x 2 x "
-                  f"{mhz:.0f} MHz")
 
 
 def pose_list(n: int, step_scale: float = 1.0):
@@ -383,11 +357,11 @@ def run_bench(n_gaussians: int = 200_000, width: int = 1200,
     dt = float(np.median(rep_walls)) / (F - 1)
     fps = 1.0 / dt
 
-    # achieved share of the card's FP32 peak by the compositing forward's
-    # walked cells: IRLS iterations are forward renders; the keyframing
-    # render adds one at the last level. The per-level iteration counts
-    # are the schedule scaled to the measured total.
-    cells_per_frame = util_est = util_model = None
+    # the compositing forward's walked cells a frame: IRLS iterations are
+    # forward renders; the keyframing render adds one at the last level.
+    # The per-level iteration counts are the schedule scaled to the
+    # measured total.
+    cells_per_frame = None
     if pyr and npairs is not None:
         it_l = kw.get("level_iters", (5, 12, 2))
         sched = sum(it_l)
@@ -395,11 +369,6 @@ def run_bench(n_gaussians: int = 200_000, width: int = 1200,
         cells_per_frame = 1024.0 * (
             frac * sum(float(p) * it for p, it in zip(npairs, it_l))
             + float(npairs[-1]))
-        if on_cuda:
-            peak, how = fp32_peak(dev)
-            util_est = cells_per_frame / dt * OPS_PER_WALKED_CELL / peak
-            util_model = (f"pair_cells*{OPS_PER_WALKED_CELL:.0f}op / "
-                          f"{peak:.4g} FP32 op/s ({how})")
 
     return {
         "metric": "tracking_fps_replica_scale",
@@ -436,8 +405,6 @@ def run_bench(n_gaussians: int = 200_000, width: int = 1200,
             "pose_err_max_m": round(float(np.max(errs)), 6),
             "pair_cells_per_frame": (None if cells_per_frame is None
                                      else int(cells_per_frame)),
-            "util_est": None if util_est is None else round(util_est, 4),
-            "util_model": util_model,
             "kernel_launches": launches.counts(),
             "device": card_line() if on_cuda else str(dev),
         },

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import os
 import random
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -44,6 +43,7 @@ from ..models.camera import Camera
 from ..models.gaussian_map import GaussianMap
 from ..ops.lie import pose_matrix
 from ..utils.logging import Log
+from ..utils.trace import span
 from . import mapping, seeding
 from .mapping import KFStore, PoseAdamState
 
@@ -179,7 +179,9 @@ class BackEnd:
         while free < incoming:
             new_cap = self.gm.capacity * 2
             Log(f"Growing map capacity to {new_cap}", tag="Backend")
-            self.gm, self.gm_adam = gmap.grow(self.gm, self.gm_adam, new_cap)
+            with span("backend.grow"):
+                self.gm, self.gm_adam = gmap.grow(self.gm, self.gm_adam,
+                                                  new_cap)
             free = self.gm.capacity - int(self.gm.num_active())
             self._invalidate_plans()
 
@@ -196,36 +198,44 @@ class BackEnd:
     def add_next_kf(self, frame_idx: int, R, t, exposure_a, exposure_b,
                     gt_image, gt_depth, depth_map, init=False):
         """Store the keyframe and seed new Gaussians from ``depth_map``."""
-        slot = self.uid_to_slot.get(frame_idx)
-        if slot is None:
-            slot = len(self.uid_to_slot)
-            if slot >= self.kf_capacity:
-                self.kf_capacity *= 2
-                Log(f"Growing KF store to {self.kf_capacity}", tag="Backend")
-                self.store = self.store.grow(self.kf_capacity)
-            self.uid_to_slot[frame_idx] = slot
-        gt_image = self._as_f32(gt_image)
-        gt_depth = (torch.zeros(1, self.cam.height, self.cam.width,
-                                device=self.device)
-                    if gt_depth is None else self._as_f32(gt_depth))
-        if gt_depth.dim() == 2:
-            gt_depth = gt_depth[None]
-        self.store = self.store.add(
-            slot, self._as_f32(R), self._as_f32(t), self._as_f32(exposure_a),
-            self._as_f32(exposure_b), gt_image, gt_depth, frame_idx)
+        with span("backend.add_next_kf", frame_idx=frame_idx):
+            slot = self.uid_to_slot.get(frame_idx)
+            if slot is None:
+                slot = len(self.uid_to_slot)
+                if slot >= self.kf_capacity:
+                    self.kf_capacity *= 2
+                    Log(f"Growing KF store to {self.kf_capacity}",
+                        tag="Backend")
+                    with span("backend.grow"):
+                        self.store = self.store.grow(self.kf_capacity)
+                self.uid_to_slot[frame_idx] = slot
+            gt_image = self._as_f32(gt_image)
+            gt_depth = (torch.zeros(1, self.cam.height, self.cam.width,
+                                    device=self.device)
+                        if gt_depth is None else self._as_f32(gt_depth))
+            if gt_depth.dim() == 2:
+                gt_depth = gt_depth[None]
+            self.store = self.store.add(
+                slot, self._as_f32(R), self._as_f32(t),
+                self._as_f32(exposure_a), self._as_f32(exposure_b),
+                gt_image, gt_depth, frame_idx)
 
-        ds_cfg = self.config["Dataset"]
-        factor = (ds_cfg["pcd_downsample_init"] if init
-                  else ds_cfg["pcd_downsample"])
-        block = seeding.seed_from_frame(
-            gt_image, self._as_f32(depth_map), self.cam, self._w2c(slot),
-            frame_idx, self._gen, factor, ds_cfg["point_size"],
-            ds_cfg.get("adaptive_pointsize", False), self.gm.max_sh_degree)
-        self._ensure_capacity(int(torch.sum(block.valid)))
-        self.gm, self.gm_adam, ov = gmap.extend(self.gm, self.gm_adam, block)
-        self._invalidate_plans()
-        if int(ov) > 0:
-            Log(f"extend overflow {int(ov)}", tag="Backend")
+            ds_cfg = self.config["Dataset"]
+            factor = (ds_cfg["pcd_downsample_init"] if init
+                      else ds_cfg["pcd_downsample"])
+            with span("backend.seed"):
+                block = seeding.seed_from_frame(
+                    gt_image, self._as_f32(depth_map), self.cam,
+                    self._w2c(slot), frame_idx, self._gen, factor,
+                    ds_cfg["point_size"],
+                    ds_cfg.get("adaptive_pointsize", False),
+                    self.gm.max_sh_degree)
+            self._ensure_capacity(int(torch.sum(block.valid)))
+            self.gm, self.gm_adam, ov = gmap.extend(self.gm, self.gm_adam,
+                                                    block)
+            self._invalidate_plans()
+            if int(ov) > 0:
+                Log(f"extend overflow {int(ov)}", tag="Backend")
 
     def _w2c(self, slot):
         return pose_matrix(self.store.R[slot], self.store.t[slot])
@@ -277,58 +287,65 @@ class BackEnd:
                          frames_to_optimize, initialization, need_nt=True,
                          level=1):
         T = len(randoms_per_iter)
-        rows = []
-        for randoms in randoms_per_iter:
-            idx, valid, opt_pose, opt_exp = self._window_tensors(
-                window_uids, randoms, frames_to_optimize)
-            rows.append(idx)
-        window_idx = np.stack(rows)
-        xyz_lrs = [self._xyz_lr(self.iteration_count + 1 + i)
-                   for i in range(T)]
-        plan_key = (tuple(int(x) for x in window_idx[0, :self.window_size]),
-                    tuple(bool(v) for v in valid), self.gm.capacity,
-                    self.pair_capacity, self.tile16, level)
-        plans_in = None
-        if (self.mesh is None and not self.use_oracle
-                and self._plan_cache is not None
-                and self._plan_cache[0] == plan_key
-                and self._plan_cache[2] < self._plan_reuse):
-            plans_in = self._plan_cache[1]
-            self.plan_stats["reused_batches"] += 1
-            self.plan_stats["reused_iters"] += T
-            self.plan_stats["max_stale_iters"] = max(
-                self.plan_stats["max_stale_iters"], self._plan_cache[2] + T)
-        rows_const = all(r == randoms_per_iter[0]
-                         for r in randoms_per_iter[1:])
-        # on the mesh every (padded) slot is planned, each on its rank
-        n_planned = None
-        if rows_const and self.map_random_per_batch and not self.use_oracle:
-            n_planned = (self.F if self.mesh is not None
-                         else self.window_size + 2)
-        out = mapping.mapping_steps(
-            self.gm, self.gm_adam, self.store, window_idx, valid, opt_pose,
-            opt_exp, self.pose_adam, self.cam, self.bg, self._gm_lrs(),
-            xyz_lrs, self.lr_rot * 0.5, self.lr_trans * 0.5,
-            self.rgb_boundary_threshold, n_window=self.window_size,
-            alpha=self.alpha, monocular=self.monocular,
-            initialization=initialization, pair_capacity=self.pair_capacity,
-            use_oracle=self.use_oracle, tile16=self.tile16,
-            need_n_touched=need_nt, window_plans_in=plans_in,
-            n_planned=n_planned, level=level, mesh=self.mesh)
-        if out.window_plans is not None:
-            # staleness counts every iteration since the plans were built
-            if plans_in is None:
-                self.plan_stats["builds"] += 1
-            used = T if plans_in is None else self._plan_cache[2] + T
-            self._plan_cache = (plan_key, out.window_plans, used)
-        self.iteration_count += T
-        self.last_sent += T
-        self.gm, self.gm_adam = out.gm, out.gm_adam
-        self.store, self.pose_adam = out.store, out.pose_adam
-        if _NAN_CHECK:
-            self._assert_finite(f"after _run_batch T={T} "
-                                f"init={initialization}")
-        return out
+        with span("backend.batch", T=T) as sp:
+            rows = []
+            for randoms in randoms_per_iter:
+                idx, valid, opt_pose, opt_exp = self._window_tensors(
+                    window_uids, randoms, frames_to_optimize)
+                rows.append(idx)
+            window_idx = np.stack(rows)
+            xyz_lrs = [self._xyz_lr(self.iteration_count + 1 + i)
+                       for i in range(T)]
+            plan_key = (
+                tuple(int(x) for x in window_idx[0, :self.window_size]),
+                tuple(bool(v) for v in valid), self.gm.capacity,
+                self.pair_capacity, self.tile16, level)
+            plans_in = None
+            if (self.mesh is None and not self.use_oracle
+                    and self._plan_cache is not None
+                    and self._plan_cache[0] == plan_key
+                    and self._plan_cache[2] < self._plan_reuse):
+                plans_in = self._plan_cache[1]
+                self.plan_stats["reused_batches"] += 1
+                self.plan_stats["reused_iters"] += T
+                self.plan_stats["max_stale_iters"] = max(
+                    self.plan_stats["max_stale_iters"],
+                    self._plan_cache[2] + T)
+            sp.attrs["reused"] = plans_in is not None
+            rows_const = all(r == randoms_per_iter[0]
+                             for r in randoms_per_iter[1:])
+            # on the mesh every (padded) slot is planned, each on its rank
+            n_planned = None
+            if (rows_const and self.map_random_per_batch
+                    and not self.use_oracle):
+                n_planned = (self.F if self.mesh is not None
+                             else self.window_size + 2)
+            out = mapping.mapping_steps(
+                self.gm, self.gm_adam, self.store, window_idx, valid,
+                opt_pose, opt_exp, self.pose_adam, self.cam, self.bg,
+                self._gm_lrs(), xyz_lrs, self.lr_rot * 0.5,
+                self.lr_trans * 0.5, self.rgb_boundary_threshold,
+                n_window=self.window_size, alpha=self.alpha,
+                monocular=self.monocular, initialization=initialization,
+                pair_capacity=self.pair_capacity,
+                use_oracle=self.use_oracle, tile16=self.tile16,
+                need_n_touched=need_nt, window_plans_in=plans_in,
+                n_planned=n_planned, level=level, mesh=self.mesh)
+            if out.window_plans is not None:
+                # staleness counts every iteration since the plans were
+                # built
+                if plans_in is None:
+                    self.plan_stats["builds"] += 1
+                used = T if plans_in is None else self._plan_cache[2] + T
+                self._plan_cache = (plan_key, out.window_plans, used)
+            self.iteration_count += T
+            self.last_sent += T
+            self.gm, self.gm_adam = out.gm, out.gm_adam
+            self.store, self.pose_adam = out.store, out.pose_adam
+            if _NAN_CHECK:
+                self._assert_finite(f"after _run_batch T={T} "
+                                    f"init={initialization}")
+            return out
 
     def _assert_finite(self, tag):
         """AssertionError((tag, field)) unless the active Gaussians'
@@ -407,9 +424,10 @@ class BackEnd:
             elif it % self.gaussian_reset == 0:
                 Log("Resetting opacity of non-visible gaussians",
                     tag="Backend")
-                vis_any = torch.any(out.radii > 0, dim=0)
-                self.gm, self.gm_adam = gmap.reset_opacity_nonvisible(
-                    self.gm, self.gm_adam, vis_any)
+                with span("backend.opacity_reset"):
+                    vis_any = torch.any(out.radii > 0, dim=0)
+                    self.gm, self.gm_adam = gmap.reset_opacity_nonvisible(
+                        self.gm, self.gm_adam, vis_any)
                 self._invalidate_plans()
 
         if out is not None:
@@ -418,50 +436,53 @@ class BackEnd:
         return True
 
     def _densify_and_prune(self, th, extent, size_threshold):
-        # headroom for split and clone (up to 2x active)
-        self._ensure_capacity(int(self.gm.num_active()))
-        counts = dict(iteration=self.iteration_count)
-        self.gm, self.gm_adam, ov = gmap.densify_and_prune(
-            self.gm, self.gm_adam, self._gen, self.densify_grad_threshold,
-            th, extent, size_threshold, self.percent_dense, counts=counts)
-        counts["overflow"] = ov
-        self.densify_log.append(counts)
-        self._invalidate_plans()
-        if int(ov) > 0:
-            Log(f"densify overflow {int(ov)}", tag="Backend")
-        if _NAN_CHECK:
-            self._assert_finite("after densify_and_prune")
+        with span("backend.densify"):
+            # headroom for split and clone (up to 2x active)
+            self._ensure_capacity(int(self.gm.num_active()))
+            counts = dict(iteration=self.iteration_count)
+            self.gm, self.gm_adam, ov = gmap.densify_and_prune(
+                self.gm, self.gm_adam, self._gen,
+                self.densify_grad_threshold, th, extent, size_threshold,
+                self.percent_dense, counts=counts)
+            counts["overflow"] = ov
+            self.densify_log.append(counts)
+            self._invalidate_plans()
+            if int(ov) > 0:
+                Log(f"densify overflow {int(ov)}", tag="Backend")
+            if _NAN_CHECK:
+                self._assert_finite("after densify_and_prune")
 
     def _covisibility_prune(self, window_uids, n_touched):
         """The reference's covisibility prune (prune_mode slam/odometry),
         on the device."""
-        self.occ_aware_visibility = {}
-        k = len(window_uids[:self.window_size])
-        for i, uid in enumerate(window_uids[:self.window_size]):
-            self.occ_aware_visibility[uid] = n_touched[i] > 0
+        with span("backend.covis_prune"):
+            self.occ_aware_visibility = {}
+            k = len(window_uids[:self.window_size])
+            for i, uid in enumerate(window_uids[:self.window_size]):
+                self.occ_aware_visibility[uid] = n_touched[i] > 0
 
-        if len(window_uids) == self.window_size:
-            prune_coviz = 3
-            n_obs = torch.sum((n_touched[:k] > 0).to(torch.int32), dim=0,
-                              dtype=torch.int32)
-            self.gm = self.gm.replace(n_obs=n_obs)
-            to_prune = None
-            if self.prune_mode == "odometry":
-                to_prune = n_obs < 3
-            if self.prune_mode == "slam":
-                sorted_window = sorted(window_uids, reverse=True)
-                kfids = self.gm.unique_kfids
-                mask = kfids >= sorted_window[2]
+            if len(window_uids) == self.window_size:
+                prune_coviz = 3
+                n_obs = torch.sum((n_touched[:k] > 0).to(torch.int32), dim=0,
+                                  dtype=torch.int32)
+                self.gm = self.gm.replace(n_obs=n_obs)
+                to_prune = None
+                if self.prune_mode == "odometry":
+                    to_prune = n_obs < 3
+                if self.prune_mode == "slam":
+                    sorted_window = sorted(window_uids, reverse=True)
+                    kfids = self.gm.unique_kfids
+                    mask = kfids >= sorted_window[2]
+                    if not self.initialized:
+                        mask = kfids >= 0
+                    to_prune = (n_obs <= prune_coviz) & mask
+                if to_prune is not None and self.monocular:
+                    self.gm, self.gm_adam = gmap.prune(self.gm, self.gm_adam,
+                                                       to_prune)
+                    self._invalidate_plans()
                 if not self.initialized:
-                    mask = kfids >= 0
-                to_prune = (n_obs <= prune_coviz) & mask
-            if to_prune is not None and self.monocular:
-                self.gm, self.gm_adam = gmap.prune(self.gm, self.gm_adam,
-                                                   to_prune)
-                self._invalidate_plans()
-            if not self.initialized:
-                self.initialized = True
-                Log("Initialized SLAM", tag="Backend")
+                    self.initialized = True
+                    Log("Initialized SLAM", tag="Backend")
 
     # ------------------------------------------------------------------
     def initialize_map(self, frame_uid: int):
@@ -475,55 +496,57 @@ class BackEnd:
             + [self.init_gaussian_reset,
                self.opt_params["densify_from_iter"]]))
         done = 0
-        t0 = time.time()
-        for ev in events + [self.init_itr_num]:
-            if ev <= done or ev > self.init_itr_num:
-                continue
-            self.map([frame_uid], iters=ev - done, initialization=True,
-                     frames_to_optimize=0)
-            done = ev
-            if ev % self.init_gaussian_update == 0:
-                self._densify_and_prune(
-                    self.init_gaussian_th, self.init_gaussian_extent, None)
-            if ev in (self.init_gaussian_reset,
-                      self.opt_params["densify_from_iter"]):
-                self.gm, self.gm_adam = gmap.reset_opacity(self.gm,
-                                                           self.gm_adam)
-        Log(f"Initialized map ({time.time() - t0:.1f}s)", tag="Backend")
+        with span("backend.init_map", frame_idx=frame_uid) as sp:
+            for ev in events + [self.init_itr_num]:
+                if ev <= done or ev > self.init_itr_num:
+                    continue
+                self.map([frame_uid], iters=ev - done, initialization=True,
+                         frames_to_optimize=0)
+                done = ev
+                if ev % self.init_gaussian_update == 0:
+                    self._densify_and_prune(
+                        self.init_gaussian_th, self.init_gaussian_extent,
+                        None)
+                if ev in (self.init_gaussian_reset,
+                          self.opt_params["densify_from_iter"]):
+                    self.gm, self.gm_adam = gmap.reset_opacity(
+                        self.gm, self.gm_adam)
+        Log(f"Initialized map ({sp.seconds:.1f}s)", tag="Backend")
 
     def prewarm_mapping(self):
         """Build every CUDA kernel before the clock starts (the
         reference's compile-and-dispatch walk has no counterpart)."""
         if self.device.type == "cuda":
             from ..ops import _build
-            t0 = time.time()
-            _build.build()
-            self.prewarm_wall_s = time.time() - t0
+            with span("backend.prewarm") as sp:
+                _build.build()
+            self.prewarm_wall_s = sp.seconds
 
     def handle_keyframe(self, frame_idx, window_uids):
         """Map the new window, then the prune pass."""
-        t0 = time.perf_counter()
-        self.current_window = list(window_uids)
-        iter_per_kf = self.mapping_itr_num if self.single_thread else 10
-        frames_to_optimize = self.pose_window
-        if not self.initialized:
-            if len(self.current_window) == self.window_size:
-                frames_to_optimize = self.window_size - 1
-                iter_per_kf = 50 if self.live_mode else 300
-                Log("Performing initial BA for initialization",
-                    tag="Backend")
-            else:
-                iter_per_kf = self.mapping_itr_num
-        self.pose_adam = PoseAdamState.zero(self.F, device=self.device)
-        self.map(self.current_window, iters=iter_per_kf,
-                 frames_to_optimize=frames_to_optimize)
-        t1 = time.perf_counter()
-        self.map(self.current_window, prune=True,
-                 frames_to_optimize=frames_to_optimize)
-        t2 = time.perf_counter()
-        Log(f"keyframe {frame_idx} mapped: {iter_per_kf} iters, window "
-            f"{len(self.current_window)}, {t2 - t0:.3f}s (map "
-            f"{t1 - t0:.3f} prune {t2 - t1:.3f})", tag="Backend")
+        with span("backend.handle_keyframe", frame_idx=frame_idx) as hk:
+            self.current_window = list(window_uids)
+            iter_per_kf = self.mapping_itr_num if self.single_thread else 10
+            frames_to_optimize = self.pose_window
+            if not self.initialized:
+                if len(self.current_window) == self.window_size:
+                    frames_to_optimize = self.window_size - 1
+                    iter_per_kf = 50 if self.live_mode else 300
+                    Log("Performing initial BA for initialization",
+                        tag="Backend")
+                else:
+                    iter_per_kf = self.mapping_itr_num
+            self.pose_adam = PoseAdamState.zero(self.F, device=self.device)
+            with span("backend.map") as sp_map:
+                self.map(self.current_window, iters=iter_per_kf,
+                         frames_to_optimize=frames_to_optimize)
+            with span("backend.prune_pass") as sp_prune:
+                self.map(self.current_window, prune=True,
+                         frames_to_optimize=frames_to_optimize)
+            Log(f"keyframe {frame_idx} mapped: {iter_per_kf} iters, window "
+                f"{len(self.current_window)}, {hk.seconds:.3f}s (map "
+                f"{sp_map.seconds:.3f} prune {sp_prune.seconds:.3f})",
+                tag="Backend")
 
     def color_refinement(self, iteration_total: int = 26000,
                          batch: int = 256):

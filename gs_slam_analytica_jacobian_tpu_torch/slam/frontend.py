@@ -26,6 +26,7 @@ from ..device import resolve_device
 from ..models.camera import Camera
 from ..ops import losses
 from ..utils.logging import Log
+from ..utils.trace import span
 from . import tracking
 
 
@@ -408,12 +409,12 @@ class FrontEnd:
         ``BackEnd.prewarm_mapping``)."""
         if self._prewarmed:
             return
-        t0 = time.time()
-        if self.device.type == "cuda":
-            from ..ops import _build
-            _build.build()
+        with span("frontend.prewarm") as sp:
+            if self.device.type == "cuda":
+                from ..ops import _build
+                _build.build()
         self._prewarmed = True
-        self.prewarm_wall_s = time.time() - t0
+        self.prewarm_wall_s = sp.seconds
         Log(f"prewarmed the tracking kernels in {self.prewarm_wall_s:.1f}s",
             tag="Frontend")
 
@@ -971,42 +972,42 @@ class FrontEnd:
     def process_frame(self, idx: int):
         """One step of the reference run() loop (slam_frontend.py:332-480),
         single-thread semantics. Returns dict with step info."""
-        tic = time.time()
-        if self.link is not None:
-            self.link.drain(self)
-
-        t_load0 = time.time()
-        rec = self.load_frame(idx)
-        self._t_load = time.time() - t_load0
-        if self.reset:
-            self.initialize(idx, rec)
-            self.current_window = [idx]
-            if self.prewarm:
-                self.prewarm_tracking()
-            return dict(keyframe=True, init=True, iters=0)
-
-        self.initialized = self.initialized or (
-            len(self.current_window) == self.window_size)
-
-        # frontend device priority (async): hold off backend idle
-        # refinement while this frame's device work (tracking, overlap
-        # stats, polish) is in flight — see BackendLink.want_device
-        if self.link is not None:
-            self.link.want_device.set()
-        try:
-            return self._process_frame_tracked(idx, rec, tic)
-        finally:
+        with span("frontend.frame", frame_idx=idx) as frame:
             if self.link is not None:
-                self.link.want_device.clear()
+                self.link.drain(self)
 
-    def _process_frame_tracked(self, idx, rec, tic):
-        t_tr0 = time.time()
-        out, iters = self.track(idx, rec)
-        t_track = time.time() - t_tr0
+            with span("frontend.load") as sp:
+                rec = self.load_frame(idx)
+            self._t_load = sp.seconds
+            if self.reset:
+                self.initialize(idx, rec)
+                self.current_window = [idx]
+                if self.prewarm:
+                    self.prewarm_tracking()
+                return dict(keyframe=True, init=True, iters=0)
+
+            self.initialized = self.initialized or (
+                len(self.current_window) == self.window_size)
+
+            # frontend device priority (async): hold off backend idle
+            # refinement while this frame's device work (tracking, overlap
+            # stats, polish) is in flight — see BackendLink.want_device
+            if self.link is not None:
+                self.link.want_device.set()
+            try:
+                return self._process_frame_tracked(idx, rec, frame)
+            finally:
+                if self.link is not None:
+                    self.link.want_device.clear()
+
+    def _process_frame_tracked(self, idx, rec, frame):
+        with span("frontend.track") as sp:
+            out, iters = self.track(idx, rec)
+        t_track = sp.seconds
 
         def log_frame(kf, extra=0.0):
             self.frame_log.append(dict(
-                frame=idx, total=round(time.time() - tic, 4),
+                frame=idx, total=round(frame.seconds, 4),
                 load=round(self._t_load, 4), track=round(t_track, 4),
                 kf=kf, kf_host=round(extra, 4)))
 
@@ -1048,63 +1049,64 @@ class FrontEnd:
             create_kf = check_time and create_kf
 
         if create_kf:
-            t_kf0 = time.time()
-            # keyframe poses are persisted (seeding, mapping anchor, ATE)
-            # — pin the exact L1 fixed point before the pose leaves the
-            # frontend (see tracking.polish_frame; non-KF frames stay at
-            # the IRLS fixed point)
-            self.polish(rec)
-            self.current_window, removed = self.add_to_window(
-                idx, cut_ratios, self.current_window)
-            if self.monocular and not self.initialized and removed is not None:
-                self.reset = True
-                Log("Keyframes lack sufficient overlap, resetting",
-                    tag="Frontend")
-                return dict(keyframe=False, reset=True, iters=iters)
-            if not self.monocular:
-                # RGBD seeding uses gt depth only (add_new_keyframe
-                # ignores rendered depth/opacity) — no re-render needed
-                depth_map = self.add_new_keyframe(idx)
-            elif self.pyr_final_level != 1:
-                # the per-frame final render ran at reduced resolution
-                # (pyr_final_level); monocular depth seeding is
-                # per-pixel, so re-render this keyframe full-res at the
-                # polished pose (use_oracle pins pyr_final_level to 1
-                # in __init__, so this is always the tiled renderer)
-                from .render_api import render as _render
-                out_full = _render(
-                    self.gm, self.cam.replace(
-                        R=torch.as_tensor(rec.R, device=self.device),
-                        t=torch.as_tensor(rec.t, device=self.device)),
-                    None, self.bg, pair_capacity=self.pair_capacity,
-                    device=self.device)
-                depth_map = self.add_new_keyframe(
-                    idx, depth=out_full.depth, opacity=out_full.opacity)
-            else:
-                depth_map = self.add_new_keyframe(
-                    idx, depth=out.depth, opacity=out.opacity)
-            self.backend_request_keyframe(
-                idx, rec, self.current_window, depth_map)
-            # interim trajectory eval every save_trj_kf_intv keyframes
-            # (reference slam_frontend.py:461-474)
-            if (self.save_trj and self.save_dir is not None
-                    and len(self.kf_indices) % self.save_trj_kf_intv == 0):
-                from ..utils import eval as eval_utils
-                ate = eval_utils.eval_ate(
-                    self.frames, self.kf_indices, self.save_dir,
-                    iterations=idx, monocular=self.monocular)
-                self.ate_log.append(
-                    dict(frame=idx, n_kf=len(self.kf_indices), ate=ate))
+            with span("frontend.kf_host") as kf_sp:
+                # keyframe poses are persisted (seeding, mapping anchor, ATE)
+                # — pin the exact L1 fixed point before the pose leaves the
+                # frontend (see tracking.polish_frame; non-KF frames stay at
+                # the IRLS fixed point)
+                self.polish(rec)
+                self.current_window, removed = self.add_to_window(
+                    idx, cut_ratios, self.current_window)
+                if (self.monocular and not self.initialized
+                        and removed is not None):
+                    self.reset = True
+                    Log("Keyframes lack sufficient overlap, resetting",
+                        tag="Frontend")
+                    return dict(keyframe=False, reset=True, iters=iters)
+                if not self.monocular:
+                    # RGBD seeding uses gt depth only (add_new_keyframe
+                    # ignores rendered depth/opacity) — no re-render needed
+                    depth_map = self.add_new_keyframe(idx)
+                elif self.pyr_final_level != 1:
+                    # the per-frame final render ran at reduced resolution
+                    # (pyr_final_level); monocular depth seeding is
+                    # per-pixel, so re-render this keyframe full-res at the
+                    # polished pose (use_oracle pins pyr_final_level to 1
+                    # in __init__, so this is always the tiled renderer)
+                    from .render_api import render as _render
+                    out_full = _render(
+                        self.gm, self.cam.replace(
+                            R=torch.as_tensor(rec.R, device=self.device),
+                            t=torch.as_tensor(rec.t, device=self.device)),
+                        None, self.bg, pair_capacity=self.pair_capacity,
+                        device=self.device)
+                    depth_map = self.add_new_keyframe(
+                        idx, depth=out_full.depth, opacity=out_full.opacity)
+                else:
+                    depth_map = self.add_new_keyframe(
+                        idx, depth=out.depth, opacity=out.opacity)
+                self.backend_request_keyframe(
+                    idx, rec, self.current_window, depth_map)
+                # interim trajectory eval every save_trj_kf_intv keyframes
+                # (reference slam_frontend.py:461-474)
+                if (self.save_trj and self.save_dir is not None
+                        and len(self.kf_indices) % self.save_trj_kf_intv == 0):
+                    from ..utils import eval as eval_utils
+                    ate = eval_utils.eval_ate(
+                        self.frames, self.kf_indices, self.save_dir,
+                        iterations=idx, monocular=self.monocular)
+                    self.ate_log.append(
+                        dict(frame=idx, n_kf=len(self.kf_indices), ate=ate))
             # 3 FPS throttle after keyframe creation so the async backend
             # can catch up (reference slam_frontend.py:477-480); a no-op
             # in single-thread mode where the backend ran inline. Release
             # the device-priority hold first so the backend can use the
             # throttle window.
-            t_kf_host = time.time() - t_kf0
+            t_kf_host = kf_sp.seconds
             if not self.single_thread:
                 if self.link is not None:
                     self.link.want_device.clear()
-                sleep_left = 1.0 / 3.0 - (time.time() - tic)
+                sleep_left = 1.0 / 3.0 - frame.seconds
                 if sleep_left > 0:
                     time.sleep(sleep_left)
             log_frame(True, t_kf_host)

@@ -50,6 +50,7 @@ from ..ops import losses
 from ..ops.lie import pose_matrix, se3_exp
 from ..parallel.sharding import (all_reduce, check_mesh, flat_grads,
                                  unflat_grads)
+from ..utils.trace import span
 from .render_api import make_render_plan, render
 from .tracking import _cam_level, _pool_avg, _stride_center
 
@@ -213,12 +214,13 @@ def _window_plans(gm, store, slots, valid, cam_lvl, pair_capacity, tile16,
                   dev):
     """One pair plan per slot from the current map and store pose (None
     for an invalid slot, which never renders)."""
-    return [make_render_plan(
-        gm, cam_lvl.replace(R=store.R[s], t=store.t[s]),
-        pair_capacity=pair_capacity, radius_scale=PLAN_RADIUS_SCALE,
-        radius_pad=PLAN_RADIUS_PAD, tile16=tile16,
-        opa_growth=PLAN_OPA_GROWTH, device=dev) if v else None
-        for s, v in zip(slots, valid)]
+    with span("mapping.plans"):
+        return [make_render_plan(
+            gm, cam_lvl.replace(R=store.R[s], t=store.t[s]),
+            pair_capacity=pair_capacity, radius_scale=PLAN_RADIUS_SCALE,
+            radius_pad=PLAN_RADIUS_PAD, tile16=tile16,
+            opa_growth=PLAN_OPA_GROWTH, device=dev) if v else None
+            for s, v in zip(slots, valid)]
 
 
 def _mapping_iter(
@@ -234,151 +236,157 @@ def _mapping_iter(
     holds plans for the leading slots (the rest plan afresh);
     ``gt_cache`` maps a slot to its (pooled) ground truth. On a ``mesh``
     this rank renders only its shard of the slots."""
-    F = len(window_idx)
-    C = gm.capacity
-    dev = gm.device
-    f32 = torch.float32
-    cam_lvl = _cam_level(cam_template, level)
-    lp = _level_lowpass(level)
-    n_planned = 0 if window_plans is None else len(window_plans)
+    with span("mapping.iter"):
+        F = len(window_idx)
+        C = gm.capacity
+        dev = gm.device
+        f32 = torch.float32
+        cam_lvl = _cam_level(cam_template, level)
+        lp = _level_lowpass(level)
+        n_planned = 0 if window_plans is None else len(window_plans)
 
-    params = {f: getattr(gm, f).detach().requires_grad_()
-              for f in PARAM_FIELDS}
-    gm_p = gm.replace(**params)
-    slots = torch.as_tensor(np.asarray(window_idx), device=dev)
-    exp_a_w = store.exposure_a[slots]
-    exp_b_w = store.exposure_b[slots]
+        params = {f: getattr(gm, f).detach().requires_grad_()
+                  for f in PARAM_FIELDS}
+        gm_p = gm.replace(**params)
+        slots = torch.as_tensor(np.asarray(window_idx), device=dev)
+        exp_a_w = store.exposure_a[slots]
+        exp_b_w = store.exposure_b[slots]
 
-    total = torch.zeros((), dtype=f32, device=dev)
-    zeros_c = torch.zeros(C, dtype=f32, device=dev)
-    g_tau = torch.zeros(F, 6, dtype=f32, device=dev)
-    g_ea = torch.zeros(F, dtype=f32, device=dev)
-    g_eb = torch.zeros(F, dtype=f32, device=dev)
-    radii, g_norm = [], []
-    scale_vec = torch.tensor([0.5 * cam_template.width,
-                              0.5 * cam_template.height], dtype=f32,
-                             device=dev)
-    mine = range(F) if mesh is None else mesh.shard(F)
-    for j in range(F):
-        if not window_valid[j] or j not in mine:
-            radii.append(zeros_c)
-            g_norm.append(zeros_c)
-            continue
-        s = int(window_idx[j])
-        if s not in gt_cache:
-            gt_i, gt_d = store.image(s), store.depth(s)
-            if level > 1:
-                gt_i, gt_d = _pool_avg(gt_i, level), _stride_center(gt_d,
-                                                                     level)
-            gt_cache[s] = (gt_i, gt_d)
-        gt_i, gt_d = gt_cache[s]
-        tau = torch.zeros(6, dtype=f32, device=dev, requires_grad=True)
-        ea = exp_a_w[j].detach().requires_grad_()
-        eb = exp_b_w[j].detach().requires_grad_()
-        m2o = torch.zeros(C, 2, dtype=f32, device=dev, requires_grad=True)
-        out = render(gm_p, cam_lvl.replace(R=store.R[s], t=store.t[s]),
-                     PoseState(tau=tau, exposure_a=ea, exposure_b=eb), bg,
-                     mean2d_offset=m2o, use_oracle=use_oracle,
-                     pair_capacity=pair_capacity,
-                     plan=window_plans[j] if j < n_planned else None,
-                     need_n_touched=False, tile16=tile16, low_pass=lp,
-                     device=dev)
-        image_ab = (out.color if initialization
-                    else losses.apply_exposure(out.color, ea, eb))
-        if monocular:
-            L = losses.loss_mapping_rgb(image_ab, gt_i,
-                                        rgb_boundary_threshold)
-        else:
-            L = losses.loss_mapping_rgbd(image_ab, out.depth, gt_i, gt_d,
-                                         rgb_boundary_threshold, alpha)
-        L.backward()
-        total = total + L.detach()
-        g_tau[j] = tau.grad
-        if ea.grad is not None:
-            g_ea[j], g_eb[j] = ea.grad, eb.grad
-        radii.append(out.radii.detach())
-        # level renders see ~level x larger |dL/d mean2d| for the same
-        # scene error: rescale to the full-resolution densify units
-        g_norm.append(torch.linalg.norm(m2o.grad * scale_vec, dim=-1)
-                      / level)
-    g_params = {f: (p.grad if p.grad is not None else torch.zeros_like(p))
-                for f, p in params.items()}
-    radii = torch.stack(radii)                                     # (F, C)
-    g_norm = torch.stack(g_norm)
-    if mesh is not None:
-        # one all-reduce: every per-frame row is zero on the ranks that
-        # do not own the frame, so the sums are the one-rank values
-        buf = all_reduce(torch.cat([
-            flat_grads(g_params), g_tau.reshape(-1), g_ea, g_eb,
-            radii.reshape(-1), g_norm.reshape(-1), total[None]]), mesh)
-        n_p = buf.numel() - (8 * F + 2 * F * C + 1)
-        g_params = unflat_grads(buf[:n_p], g_params)
-        rest = buf[n_p:]
-        g_tau = rest[:6 * F].reshape(F, 6)
-        g_ea, g_eb = rest[6 * F:7 * F], rest[7 * F:8 * F]
-        radii = rest[8 * F:8 * F + F * C].reshape(F, C)
-        g_norm = rest[8 * F + F * C:8 * F + 2 * F * C].reshape(F, C)
-        total = rest[-1]
-    # the isotropic term counts once, after the frames' sum
-    iso = 10.0 * losses.isotropic_loss(params["scaling"], gm.active)
-    (g_iso,) = torch.autograd.grad(iso, params["scaling"])
-    g_params["scaling"] = g_params["scaling"] + g_iso
-    loss_val = total + iso.detach()
-
-    # Gaussian Adam step (xyz lr from the schedule)
-    lrs = dict(gm_lrs)
-    lrs["xyz"] = xyz_lr
-    with torch.no_grad():
-        new_gm, new_gm_adam = adam_update(gm, g_params, gm_adam, lrs)
-
-        # densification statistics and max radii over the valid frames
-        wv = torch.as_tensor(np.asarray(window_valid, bool), device=dev)
-        upd = (radii > 0) & wv[:, None] & new_gm.active[None, :]
-        zero = torch.zeros_like(radii)
-        new_gm = new_gm.replace(
-            xyz_grad_accum=new_gm.xyz_grad_accum
-            + torch.sum(torch.where(upd, g_norm, zero), dim=0),
-            denom=new_gm.denom + torch.sum(upd.to(f32), dim=0),
-            # level radii are in level pixels, the size prune in full-res
-            max_radii2d=torch.maximum(
-                new_gm.max_radii2d,
-                torch.amax(torch.where(upd, radii * level, zero), dim=0)))
-
-        # keyframe pose / exposure Adam (eps 1e-8, torch.optim.Adam's)
-        g8 = torch.cat([g_tau, g_ea[:, None], g_eb[:, None]], dim=1)
-        lr8 = np.zeros((F, 8), np.float32)
-        lr8[np.asarray(optimize_pose, bool), :3] = lr_trans
-        lr8[np.asarray(optimize_pose, bool), 3:6] = lr_rot
-        lr8[np.asarray(optimize_exposure, bool), 6:] = 0.01
-        lr8 = torch.as_tensor(lr8, device=dev)
-        b1, b2, eps = 0.9, 0.999, 1e-8
-        step = pose_adam.step + 1
-        tt = step.to(f32)
-        m = b1 * pose_adam.m + (1 - b1) * g8
-        v = b2 * pose_adam.v + (1 - b2) * g8 * g8
-        updv = lr8 * (m / (1 - b1 ** tt)) / (torch.sqrt(v / (1 - b2 ** tt))
-                                             + eps)
-        new_pose_adam = PoseAdamState(m=m, v=v, step=step)
-        new_ea = exp_a_w - updv[:, 6]
-        new_eb = exp_b_w - updv[:, 7]
-
-        # write back the valid window slots (the first n_window entries)
-        R, t = store.R.clone(), store.t.clone()
-        ea_s, eb_s = store.exposure_a.clone(), store.exposure_b.clone()
-        for j in range(n_window):
-            if not window_valid[j]:
+        total = torch.zeros((), dtype=f32, device=dev)
+        zeros_c = torch.zeros(C, dtype=f32, device=dev)
+        g_tau = torch.zeros(F, 6, dtype=f32, device=dev)
+        g_ea = torch.zeros(F, dtype=f32, device=dev)
+        g_eb = torch.zeros(F, dtype=f32, device=dev)
+        radii, g_norm = [], []
+        scale_vec = torch.tensor([0.5 * cam_template.width,
+                                  0.5 * cam_template.height], dtype=f32,
+                                 device=dev)
+        mine = range(F) if mesh is None else mesh.shard(F)
+        for j in range(F):
+            if not window_valid[j] or j not in mine:
+                radii.append(zeros_c)
+                g_norm.append(zeros_c)
                 continue
             s = int(window_idx[j])
-            if optimize_pose[j]:
-                nT = se3_exp(-updv[j, :6]) @ pose_matrix(store.R[s],
-                                                         store.t[s])
-                R[s], t[s] = nT[:3, :3], nT[:3, 3]
-            ea_s[s], eb_s[s] = new_ea[j], new_eb[j]
-        new_store = dataclasses.replace(store, R=R, t=t, exposure_a=ea_s,
-                                        exposure_b=eb_s)
-    return MapStepOut(gm=new_gm, gm_adam=new_gm_adam, store=new_store,
-                      pose_adam=new_pose_adam, loss=loss_val,
-                      n_touched=None, radii=radii)
+            if s not in gt_cache:
+                gt_i, gt_d = store.image(s), store.depth(s)
+                if level > 1:
+                    gt_i = _pool_avg(gt_i, level)
+                    gt_d = _stride_center(gt_d, level)
+                gt_cache[s] = (gt_i, gt_d)
+            gt_i, gt_d = gt_cache[s]
+            tau = torch.zeros(6, dtype=f32, device=dev, requires_grad=True)
+            ea = exp_a_w[j].detach().requires_grad_()
+            eb = exp_b_w[j].detach().requires_grad_()
+            m2o = torch.zeros(C, 2, dtype=f32, device=dev, requires_grad=True)
+            with span("mapping.render"):
+                out = render(
+                    gm_p, cam_lvl.replace(R=store.R[s], t=store.t[s]),
+                    PoseState(tau=tau, exposure_a=ea, exposure_b=eb), bg,
+                    mean2d_offset=m2o, use_oracle=use_oracle,
+                    pair_capacity=pair_capacity,
+                    plan=window_plans[j] if j < n_planned else None,
+                    need_n_touched=False, tile16=tile16, low_pass=lp,
+                    device=dev)
+            with span("mapping.loss"):
+                image_ab = (out.color if initialization
+                            else losses.apply_exposure(out.color, ea, eb))
+                if monocular:
+                    L = losses.loss_mapping_rgb(image_ab, gt_i,
+                                                rgb_boundary_threshold)
+                else:
+                    L = losses.loss_mapping_rgbd(
+                        image_ab, out.depth, gt_i, gt_d,
+                        rgb_boundary_threshold, alpha)
+            with span("mapping.backward"):
+                L.backward()
+            total = total + L.detach()
+            g_tau[j] = tau.grad
+            if ea.grad is not None:
+                g_ea[j], g_eb[j] = ea.grad, eb.grad
+            radii.append(out.radii.detach())
+            # level renders see ~level x larger |dL/d mean2d| for the same
+            # scene error: rescale to the full-resolution densify units
+            g_norm.append(torch.linalg.norm(m2o.grad * scale_vec, dim=-1)
+                          / level)
+        g_params = {f: (p.grad if p.grad is not None else torch.zeros_like(p))
+                    for f, p in params.items()}
+        radii = torch.stack(radii)                                     # (F, C)
+        g_norm = torch.stack(g_norm)
+        if mesh is not None:
+            # one all-reduce: every per-frame row is zero on the ranks that
+            # do not own the frame, so the sums are the one-rank values
+            buf = all_reduce(torch.cat([
+                flat_grads(g_params), g_tau.reshape(-1), g_ea, g_eb,
+                radii.reshape(-1), g_norm.reshape(-1), total[None]]), mesh)
+            n_p = buf.numel() - (8 * F + 2 * F * C + 1)
+            g_params = unflat_grads(buf[:n_p], g_params)
+            rest = buf[n_p:]
+            g_tau = rest[:6 * F].reshape(F, 6)
+            g_ea, g_eb = rest[6 * F:7 * F], rest[7 * F:8 * F]
+            radii = rest[8 * F:8 * F + F * C].reshape(F, C)
+            g_norm = rest[8 * F + F * C:8 * F + 2 * F * C].reshape(F, C)
+            total = rest[-1]
+        # the isotropic term counts once, after the frames' sum
+        iso = 10.0 * losses.isotropic_loss(params["scaling"], gm.active)
+        (g_iso,) = torch.autograd.grad(iso, params["scaling"])
+        g_params["scaling"] = g_params["scaling"] + g_iso
+        loss_val = total + iso.detach()
+
+        # Gaussian Adam step (xyz lr from the schedule)
+        lrs = dict(gm_lrs)
+        lrs["xyz"] = xyz_lr
+        with torch.no_grad(), span("mapping.step"):
+            new_gm, new_gm_adam = adam_update(gm, g_params, gm_adam, lrs)
+
+            # densification statistics and max radii over the valid frames
+            wv = torch.as_tensor(np.asarray(window_valid, bool), device=dev)
+            upd = (radii > 0) & wv[:, None] & new_gm.active[None, :]
+            zero = torch.zeros_like(radii)
+            new_gm = new_gm.replace(
+                xyz_grad_accum=new_gm.xyz_grad_accum
+                + torch.sum(torch.where(upd, g_norm, zero), dim=0),
+                denom=new_gm.denom + torch.sum(upd.to(f32), dim=0),
+                # level radii are in level pixels, the size prune in full-res
+                max_radii2d=torch.maximum(
+                    new_gm.max_radii2d,
+                    torch.amax(torch.where(upd, radii * level, zero), dim=0)))
+
+            # keyframe pose / exposure Adam (eps 1e-8, torch.optim.Adam's)
+            g8 = torch.cat([g_tau, g_ea[:, None], g_eb[:, None]], dim=1)
+            lr8 = np.zeros((F, 8), np.float32)
+            lr8[np.asarray(optimize_pose, bool), :3] = lr_trans
+            lr8[np.asarray(optimize_pose, bool), 3:6] = lr_rot
+            lr8[np.asarray(optimize_exposure, bool), 6:] = 0.01
+            lr8 = torch.as_tensor(lr8, device=dev)
+            b1, b2, eps = 0.9, 0.999, 1e-8
+            step = pose_adam.step + 1
+            tt = step.to(f32)
+            m = b1 * pose_adam.m + (1 - b1) * g8
+            v = b2 * pose_adam.v + (1 - b2) * g8 * g8
+            updv = lr8 * (m / (1 - b1 ** tt)) / (torch.sqrt(v / (1 - b2 ** tt))
+                                                 + eps)
+            new_pose_adam = PoseAdamState(m=m, v=v, step=step)
+            new_ea = exp_a_w - updv[:, 6]
+            new_eb = exp_b_w - updv[:, 7]
+
+            # write back the valid window slots (the first n_window entries)
+            R, t = store.R.clone(), store.t.clone()
+            ea_s, eb_s = store.exposure_a.clone(), store.exposure_b.clone()
+            for j in range(n_window):
+                if not window_valid[j]:
+                    continue
+                s = int(window_idx[j])
+                if optimize_pose[j]:
+                    nT = se3_exp(-updv[j, :6]) @ pose_matrix(store.R[s],
+                                                             store.t[s])
+                    R[s], t[s] = nT[:3, :3], nT[:3, 3]
+                ea_s[s], eb_s[s] = new_ea[j], new_eb[j]
+            new_store = dataclasses.replace(store, R=R, t=t, exposure_a=ea_s,
+                                            exposure_b=eb_s)
+        return MapStepOut(gm=new_gm, gm_adam=new_gm_adam, store=new_store,
+                          pose_adam=new_pose_adam, loss=loss_val,
+                          n_touched=None, radii=radii)
 
 
 def mapping_steps(
@@ -503,22 +511,23 @@ def window_visibility(
     (zeros for an invalid slot): the occlusion-aware visibility. On a
     ``mesh`` each rank renders its shard and one all-reduce assembles the
     rows on every rank."""
-    rows = []
-    slots = _host(window_idx).tolist()
-    mine = range(len(slots)) if mesh is None else mesh.shard(len(slots))
-    for j, (s, v) in enumerate(zip(slots, _host(window_valid))):
-        if not v or j not in mine:
-            rows.append(torch.zeros(gm.capacity, dtype=torch.int32,
-                                    device=gm.device))
-            continue
-        cam = cam_template.replace(R=store.R[s], t=store.t[s])
-        rows.append(render(gm, cam, None, bg, pair_capacity=pair_capacity,
-                           use_oracle=use_oracle, tile16=tile16,
-                           device=gm.device).n_touched)
-    nt = torch.stack(rows)
-    if mesh is not None:
-        all_reduce(nt, mesh)
-    return nt
+    with span("mapping.visibility"):
+        rows = []
+        slots = _host(window_idx).tolist()
+        mine = range(len(slots)) if mesh is None else mesh.shard(len(slots))
+        for j, (s, v) in enumerate(zip(slots, _host(window_valid))):
+            if not v or j not in mine:
+                rows.append(torch.zeros(gm.capacity, dtype=torch.int32,
+                                        device=gm.device))
+                continue
+            cam = cam_template.replace(R=store.R[s], t=store.t[s])
+            rows.append(render(gm, cam, None, bg, pair_capacity=pair_capacity,
+                               use_oracle=use_oracle, tile16=tile16,
+                               device=gm.device).n_touched)
+        nt = torch.stack(rows)
+        if mesh is not None:
+            all_reduce(nt, mesh)
+        return nt
 
 
 def _refinement_grads(gm, store, idx, cam_template, bg, lambda_dssim,

@@ -16,6 +16,7 @@ from ..ops import gaussian_math as gmath
 from ..ops import renderer_ref, renderer_tiled
 from ..ops.renderer_ref import RenderOutput
 from ..ops.renderer_tiled import make_plan
+from ..utils import trace
 
 
 def _check_inputs(gm: GaussianMap, cam: Camera, device):
@@ -102,13 +103,16 @@ def make_render_plan(
     map's active set (the tracker's visibility cull plans with it)."""
     dev = _check_inputs(gm, cam, device)
     require_on(dev, extra_active=extra_active)
-    prep = gmath.preprocess(
-        gm.xyz, gm.get_cov6(scaling_modifier), gm.get_opacity(),
-        gm.get_features(), gm.active_sh_degree, cam.w2c(), cam.projection(),
-        torch.zeros(6, dtype=torch.float32, device=dev), cam.fx, cam.fy,
-        cam.width, cam.height, cam.tanfovx, cam.tanfovy)
-    active = gm.active if extra_active is None else gm.active & extra_active
-    return make_plan(prep, cam.width, cam.height, pair_capacity,
-                     active=active, radius_scale=radius_scale,
-                     radius_pad=radius_pad, tile16=tile16,
-                     opa_growth=opa_growth)
+    trace.count("render.plans_built")
+    with trace.span("render.plan"):
+        prep = gmath.preprocess(
+            gm.xyz, gm.get_cov6(scaling_modifier), gm.get_opacity(),
+            gm.get_features(), gm.active_sh_degree, cam.w2c(),
+            cam.projection(), torch.zeros(6, dtype=torch.float32, device=dev),
+            cam.fx, cam.fy, cam.width, cam.height, cam.tanfovx, cam.tanfovy)
+        active = (gm.active if extra_active is None
+                  else gm.active & extra_active)
+        return make_plan(prep, cam.width, cam.height, pair_capacity,
+                         active=active, radius_scale=radius_scale,
+                         radius_pad=radius_pad, tile16=tile16,
+                         opa_growth=opa_growth)

@@ -1,8 +1,8 @@
 """The port's bench (gs_slam_analytica_jacobian_tpu_torch/bench.py) on
 the CPU at a tiny size: the JSON record the command prints, its keys
 against the reference bench's, the BENCH_* knobs reaching the tracker,
-the adaptive steps against the JAX package's ``pair_capacity_bucket``,
-and the card model of ``util_est`` (no TPU figure anywhere)."""
+and the adaptive steps against the JAX package's ``pair_capacity_bucket``
+(no TPU figure anywhere)."""
 
 import ast
 import json
@@ -20,6 +20,11 @@ ROOT = Path(__file__).resolve().parents[1]
 TINY = dict(n_gaussians=1500, width=64, height=40, frames=3, device="cpu")
 TINY_ENV = {"BENCH_ITERS": "1,2,1", "BENCH_REPS": "1",
             "BENCH_WARM_REPS": "1"}
+
+
+# the reference bench's TPU utilization model, which the port leaves out
+# (the benchmark's trace-based roofline replaced it)
+NOT_IN_PORT = {"util_est", "util_model"}
 
 
 def _reference_detail_keys():
@@ -45,7 +50,8 @@ def test_bench_record_on_cpu(record):
     assert record["value"] > 0
     assert record["vs_baseline"] == round(record["value"] / 30.0, 3)
     d = record["detail"]
-    assert _reference_detail_keys() <= set(d)
+    assert _reference_detail_keys() - NOT_IN_PORT <= set(d)
+    assert not NOT_IN_PORT & set(d)
     assert d["resolution"] == "64x40" and d["frames"] == 2
     assert d["n_gaussians"] == 1500
     assert d["gt_render_overflow"] == 0
@@ -54,9 +60,8 @@ def test_bench_record_on_cpu(record):
     assert d["pair_capacity"] == d["level_caps"][-1]
     assert np.isfinite(d["pose_err_mean_m"]) and d["pose_err_max_m"] >= 0
     assert d["pair_cells_per_frame"] > 0
-    # on the CPU: no card, no utilization model, no kernel launched
+    # on the CPU: no card, no kernel launched
     assert d["device"] == "cpu"
-    assert d["util_est"] is None and d["util_model"] is None
     assert set(d["kernel_launches"].values()) == {0}
     text = json.dumps(record)
     for word in ("TPU", "v5e", "VPU", "3.85e12"):
@@ -129,19 +134,6 @@ def test_refused_knob_combination_raises():
     env = dict(TINY_ENV, BENCH_TILE16="1", BENCH_BF16="1")
     with pytest.raises(NotImplementedError):
         bench.run_bench(env=env, **dict(TINY, n_gaussians=200))
-
-
-def test_fp32_peak_names_the_card(monkeypatch):
-    class Props:
-        name = "NVIDIA H100 80GB HBM3"
-        multi_processor_count = 132
-        clock_rate = 1_980_000                 # kHz
-
-    monkeypatch.setattr(torch.cuda, "get_device_properties",
-                        lambda dev: Props())
-    peak, how = bench.fp32_peak(torch.device("cuda", 0))
-    assert peak == pytest.approx(132 * 128 * 2 * 1.98e9)
-    assert "H100" in how and "TPU" not in how
 
 
 def test_bench_defaults_to_cuda(monkeypatch):
