@@ -224,6 +224,23 @@ After the mapping path, ``depth_reg`` renders its last keyframe's depth
 from the final map (B1') and holds losses.depth_reg on the card against
 the same tensors' on the CPU (DEPTH_REG_RTOL). The kernels line takes
 each row's source= and replaces= from ops/launches.py PALLAS_SITES.
+
+P1, the fused preprocess (csrc/preprocess.cu, ops/preprocess_fused.py),
+which every render and plan build of the paths starts from: phase 2's
+``preprocess`` part prints the torch, CUDA and cuBLAS versions, then runs
+preprocess_fwd and preprocess_bwd (a seeded tau, screen-space offset and
+table gradient, the active mask) on the room map at the main path's
+capacity and camera, and at PREP_CAPACITIES (tum-map's map, 2^16 to 2^19
+slots at 640x480), against preprocess_plain and preprocess_bwd_plain:
+every float field and per-Gaussian gradient bit for bit (torch.equal),
+integer flips within PREP_FLIP_FRAC of the rows, dL/dtau within
+PREP_TAU_REL and the same from two launches. At the main path's capacity,
+2^16 and 2^18 it times each call (wall among PREP_CALLS issued back to
+back) beside the eager version's, and the deferred profiled pass reads
+their device times. Both counters are in WRAPPERS: the main path must
+launch the forward, the exact-gradient and mapping paths both; the
+kernels line has a row for each (device ms, wall, plain, bound of
+PREP_FWD_BYTES / PREP_BWD_BYTES a slot, by capacity).
 A failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
@@ -253,6 +270,7 @@ from gs_slam_analytica_jacobian_tpu_torch.ops import camera_math as cm  # noqa: 
 from gs_slam_analytica_jacobian_tpu_torch.ops import gaussian_math as gmath  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import launches as path_launches  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import losses  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.ops import preprocess_fused as pf  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel16 as tk16  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel2 as tk  # noqa: E402
@@ -1769,6 +1787,198 @@ def phase_abl16(dev):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# phase 2: the fused preprocess (P1) against its plain version
+# ---------------------------------------------------------------------------
+
+# tum-map's mapping backend starts its map at 2^16 slots and doubles it as
+# it fills (2^18 in its longest runs so far); the check takes one doubling
+# more. Each capacity holds the room map's first min(N_ROOM, capacity)
+# Gaussians, the rest inactive, seen at 640x480 with TUM fr1/desk's
+# intrinsics from inside the room.
+PREP_CAPACITIES = (1 << 16, 1 << 17, 1 << 18, 1 << 19)
+TUM_FX, TUM_FY, TUM_CX, TUM_CY, TUM_W, TUM_H = (517.306, 516.469, 318.643,
+                                                255.314, 640, 480)
+# bytes a capacity slot moves at SH degree 0 (csrc/preprocess.cu): the
+# forward reads the raw parameters (56), the offset (8) and the mask (1)
+# and writes the table (64), aux (32), rect (16), tiles_touched (4) and
+# valid (1); the backward reads the parameters (56) and 10 columns of the
+# table's gradient (40) and writes the parameters' gradients (56: xyz 12,
+# scaling 12, rotation 16, opacity 4, features_dc 12) and the offset's (8)
+PREP_FWD_BYTES = 56 + 8 + 1 + 64 + 32 + 16 + 4 + 1
+PREP_BWD_BYTES = 56 + 40 + 56 + 8
+PREP_KERNELS = ("preprocess_fwd", "preprocess_bwd")
+PREP_CALLS = 20       # calls a timing or a profiled pass issues back to back
+# the forward's fields and the backward's per-Gaussian gradients must equal
+# the plain versions' bit for bit (the benchmark's gradient checks see the
+# rounding of a thin splat's conic); tau, a sum over every slot in another
+# order, within 1e-5 of its largest component; the integer fields may flip
+# where a value rounds across a threshold, in at most 1e-5 of the rows
+PREP_TAU_REL = 1e-5
+PREP_FLIP_FRAC = 1e-5
+
+
+def cublas_version():
+    """(version, path) of the cuBLAS library this process has loaded
+    (cublasGetProperty), or (None, None)."""
+    import ctypes
+    torch.ones(4, 3, device="cuda") @ torch.ones(3, 3, device="cuda")
+    torch.cuda.synchronize()
+    with open("/proc/self/maps") as f:
+        paths = sorted({ln.split()[-1] for ln in f if "libcublas.so" in ln})
+    for path in paths:
+        try:
+            lib = ctypes.CDLL(path)
+            parts = [ctypes.c_int() for _ in range(3)]
+            if all(lib.cublasGetProperty(i, ctypes.byref(v)) == 0
+                   for i, v in enumerate(parts)):
+                return ".".join(str(v.value) for v in parts), path
+        except (OSError, AttributeError):
+            continue
+    return None, None
+
+
+def prep_case(name, gm, cam, seed, time_it):
+    """preprocess_fwd and preprocess_bwd on ``gm`` at ``cam`` (a seeded
+    tau and screen-space offset, the map's active mask, as a mapping render
+    calls them) against preprocess_plain and preprocess_bwd_plain; under
+    ``time_it`` each call's wall (CUDA events over PREP_CALLS calls, per
+    call, median of 7) beside the plain version's (forward, and forward
+    with autograd's backward) and the bound; the device times come from
+    the deferred profiled pass (prep_profile)."""
+    dev, n, deg = gm.device, gm.capacity, gm.active_sh_degree
+    params = [getattr(gm, f) for f in pf.PREP_PARAMS]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tau = 0.01 * torch.randn(6, generator=g, device=dev)
+    m2o = 0.5 * torch.randn(n, 2, generator=g, device=dev)
+    # the gather's backward hands the table's gradient over transposed
+    g_table = torch.randn(16, n, generator=g, device=dev).T
+    out = pf.preprocess_fwd(params, deg, cam, tau, m2o, gm.active)
+    got = pf._views(out)
+    table, ref = pf.preprocess_plain(params, deg, cam, tau, m2o, gm.active)
+    gb = pf.preprocess_bwd(params, deg, cam, tau, g_table)
+    rb = pf.preprocess_bwd_plain(params, deg, cam, tau, g_table)
+    torch.cuda.synchronize()
+    floats = ("depth", "mean2d", "conic", "cov2d", "opacity", "color")
+    fwd_err = max(float((getattr(got, k) - getattr(ref, k)).abs().max())
+                  for k in floats)
+    fwd_equal = {k: bool(torch.equal(getattr(got, k), getattr(ref, k)))
+                 for k in floats}
+    fwd_equal["table"] = bool(torch.equal(out.table, table))
+    flips = int(((got.valid != ref.valid) | (got.radius != ref.radius)
+                 | (got.rect_min != ref.rect_min).any(-1)
+                 | (got.rect_max != ref.rect_max).any(-1)
+                 | (got.tiles_touched != ref.tiles_touched)
+                 | (got.radius_xy != ref.radius_xy).any(-1)).sum())
+    groups = (*pf.PREP_PARAMS, "mean2d_offset")
+    bwd_equal = {k: bool(torch.equal(gb[k], rb[k])) for k in groups}
+    bwd_err = max(float((gb[k] - rb[k]).abs().max()) for k in groups
+                  if gb[k].numel())
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (out.table, *(gb[k] for k in groups), gb["tau"]))
+    tau_scale = float(rb["tau"].abs().max())
+    tau_err = float((gb["tau"] - rb["tau"]).abs().max())
+    again = pf.preprocess_bwd(params, deg, cam, tau, g_table)["tau"]
+    rec = dict(case=name, capacity=n, active=int(gm.active.sum()),
+               valid=int(ref.valid.sum()), shape=f"{cam.width}x{cam.height}",
+               fwd_max_abs_err=fwd_err, fwd_bit_equal=fwd_equal,
+               int_flips=flips, bwd_max_abs_err=bwd_err,
+               bwd_bit_equal=bwd_equal, tau_max_abs_err=tau_err,
+               tau_scale=tau_scale,
+               tau_repeat_equal=bool(torch.equal(again, gb["tau"])),
+               bound_fwd_ms=PREP_FWD_BYTES * n / HBM_BYTES_PER_S * 1e3,
+               bound_bwd_ms=PREP_BWD_BYTES * n / HBM_BYTES_PER_S * 1e3)
+    if not finite:
+        fail(f"{name}: non-finite preprocess kernel output")
+    if not all(fwd_equal.values()) or flips > PREP_FLIP_FRAC * n:
+        fail(f"{name}: the preprocess forward kernel is not the plain "
+             f"version bit for bit ({fwd_equal}, max |diff| {fwd_err:.3e}, "
+             f"{flips} of {n} rows with an integer field flipped)")
+    if not all(bwd_equal.values()):
+        fail(f"{name}: the preprocess backward kernel is not the plain "
+             f"version bit for bit ({bwd_equal}, max |diff| {bwd_err:.3e})")
+    if not (0 < tau_scale and tau_err <= PREP_TAU_REL * tau_scale) \
+            or not rec["tau_repeat_equal"]:
+        fail(f"{name}: dL/dtau {tau_err:.3e} from the plain version's "
+             f"(largest component {tau_scale:.3e}, limit {PREP_TAU_REL} of "
+             f"it), the same from two launches: {rec['tau_repeat_equal']}")
+
+    def fwd():
+        pf.preprocess_fwd(params, deg, cam, tau, m2o, gm.active)
+
+    def bwd():
+        pf.preprocess_bwd(params, deg, cam, tau, g_table)
+
+    def plain_fwd():
+        leaves = [p.detach().requires_grad_() for p in params]
+        tau_l = tau.clone().requires_grad_()
+        m2o_l = m2o.clone().requires_grad_()
+        t, _ = pf.preprocess_plain(leaves, deg, cam, tau_l, m2o_l, gm.active)
+        return t, leaves + [tau_l, m2o_l]
+
+    def plain_fwd_bwd():
+        t, leaves = plain_fwd()
+        torch.autograd.grad(t, leaves, g_table, allow_unused=True)
+
+    fns = dict(fwd=fwd, bwd=bwd, plain_fwd=plain_fwd,
+               plain_fwd_bwd=plain_fwd_bwd)
+
+    def calls(fn):
+        def run():
+            for _ in range(PREP_CALLS):
+                fn()
+        return run
+
+    if time_it:
+        for k, fn in fns.items():
+            rec[f"{k}_wall_ms"] = time_ms(calls(fn)) / PREP_CALLS
+    print("preprocess-vs-plain " + json.dumps(rec), flush=True)
+    return rec, {k: calls(fn) for k, fn in fns.items()}
+
+
+def phase_preprocess(dev, gm, cam):
+    """P1, the fused preprocess: at the main path's capacity (the room
+    map, all 200,000 slots active, at the first frame's camera) and at
+    PREP_CAPACITIES (tum-map's), each wrapper against its plain version
+    (prep_case), with the versions of torch, CUDA and cuBLAS whose
+    rounding the forward mirrors. Returns the records (timed: the main
+    path's, 2^16 and 2^18) and the deferred profiled pass that adds each
+    timed record's device times."""
+    cublas, path = cublas_version()
+    print("preprocess versions " + json.dumps(dict(
+        torch=torch.__version__, cuda=torch.version.cuda, cublas=cublas,
+        cublas_path=path, card=card_line())), flush=True)
+    rec, f = prep_case("main_path_room", gm, cam, 0, True)
+    recs, fns = [rec], [f]
+    m = make_room_map(N_ROOM, np.random.default_rng(1))
+    T = se3_exp(torch.tensor([0.05, -0.02, 0.4, 0.02, -0.05, 0.01],
+                             dtype=torch.float64))
+    tum = Camera.create(T[:3, :3].numpy(), T[:3, 3].numpy(), TUM_FX, TUM_FY,
+                        TUM_CX, TUM_CY, TUM_W, TUM_H, device=dev)
+    for cap in PREP_CAPACITIES:
+        k = min(N_ROOM, cap)
+        g = gmap.from_numpy(**{f: v[:k] for f, v in m.items()},
+                            max_sh_degree=0, capacity=cap, device=dev)
+        rec, f = prep_case(f"tum_{cap}", g, tum, cap,
+                           cap in (1 << 16, 1 << 18))
+        recs.append(rec)
+        fns.append(f)
+
+    def prep_profile():
+        """Device time a call of each of the timed records' functions
+        takes (torch.profiler over PREP_CALLS calls; kernels, copies and
+        fills), into the records."""
+        for rec, f in zip(recs, fns):
+            if "fwd_wall_ms" not in rec:
+                continue
+            for k, fn in f.items():
+                p = profile_call(fn, f"profile-preprocess-{rec['case']}-{k}")
+                rec[f"{k}_device_ms"] = p["device_busy_ms"] / PREP_CALLS
+                rec[f"{k}_launches"] = p["kernel_launches"] / PREP_CALLS
+            print("preprocess-profile " + json.dumps(rec), flush=True)
+    return recs, prep_profile
+
+
 # bench.py's operating point (BENCH_r05.json detail) without its adaptive
 # steps: the schedule every tracked frame of the main path runs
 BENCH_KW = dict(lr_rot=0.003, lr_trans=0.001, rgb_boundary_threshold=0.01,
@@ -1975,9 +2185,12 @@ def count_syncs(fn):
 # kernel name -> (wrapper, its launch counter): the paths' kernels
 # (ops/launches.py: the bf16 and mxu variants count in their wrapper's
 # ``launches_bf16``, ``launches_mxu`` and, the backward under both,
-# ``launches_bf16_mxu``), then the yardsticks
+# ``launches_bf16_mxu``), the fused preprocess (P1, outside COUNTERS: it
+# replaces no Pallas site), then the yardsticks
 WRAPPERS = dict(
     path_launches.COUNTERS,
+    preprocess_fwd=(pf.preprocess_fwd, "launches"),
+    preprocess_bwd=(pf.preprocess_bwd, "launches"),
     composite32_fwd_tile1024=(tk.composite32_fwd_tile1024, "launches"),
     composite32_bwd_tile1024=(tk.composite32_bwd_tile1024, "launches"),
     composite32_fwd_mxu_tile1024=(tk.composite32_fwd_mxu_tile1024,
@@ -3123,6 +3336,7 @@ def run(dev):
     cases_bf16, b2_bf16_cases = phase_kernels_bf16(dev, gm, cam, gt1)
     cases_mxu, b2_mxu_cases, _ = phase_kernels_mxu(dev, gm, cam, gt1)
     abl = phase_abl16(dev)
+    prep_recs, prep_profile = phase_preprocess(dev, gm, cam)
     phase_done("kernels")
 
     # phase 3: the main path, with launch counts from 0
@@ -3136,7 +3350,8 @@ def run(dev):
     rec = run_schedule("main-path", dev, gm, cam, gts, poses, BENCH_KW,
                        gt_overflow)
     launches = {"main-path": read_counts(
-        "main-path", ("composite32_fwd", "composite32_fwd_ntouch"))}
+        "main-path", ("composite32_fwd", "composite32_fwd_ntouch",
+                      "preprocess_fwd"))}
     if not rec["finite"]:
         fail("non-finite tracking output")
     if rec["overflow"] > 0:
@@ -3147,7 +3362,8 @@ def run(dev):
     # torch.profiler leaves this process's host about 2x slower for the
     # rest of its life (PERF.md §7), so every profiled pass is deferred to
     # ``profiles``, run after the last timed one
-    profiles = [lambda: phase_profile(dev, gm, cam, gts, poses)]
+    profiles = [lambda: phase_profile(dev, gm, cam, gts, poses),
+                prep_profile]
     # the schedule of the JAX record
     r05 = run_schedule("bench-r05-schedule", dev, gm, cam, gts, poses,
                        R05_KW, gt_overflow)
@@ -3201,7 +3417,7 @@ def run(dev):
     phase_done("tile16, render-bf16/mxu")
 
     # phase 4: the exact-gradient paths, each with launch counts from 0
-    all_kernels = KERNELS32
+    all_kernels = KERNELS32 + PREP_KERNELS
     reset_counts()
     pol = run_schedule("keyframe-polish", dev, gm, cam, gts, poses,
                        BENCH_KW, gt_overflow, polish=True)
@@ -3319,7 +3535,7 @@ def run(dev):
         reset_counts()
         maps[name], be = run_mapping(name, dev, cam, kf_gts, kf_poses, t16)
         profiles.append(functools.partial(profile_mapping, name, be))
-        launches[name] = read_counts(name, req, forbidden=forb)
+        launches[name] = read_counts(name, req + PREP_KERNELS, forbidden=forb)
         if name == "mapping":
             depth_reg_check(name, be, kf_gts)
     a, b = maps["mapping"], maps["mapping-tile16"]
@@ -3552,6 +3768,33 @@ def run(dev):
             launches=total[name], max_abs_err=err, ms=ms,
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
+    # P1: the fused preprocess at the main path's capacity (ms: device
+    # time a call, from the profiled pass; wall_ms: a call's wall among
+    # calls issued back to back; plain: the eager version, forward alone
+    # and with autograd's backward), tum-map's capacities beside it
+    main = next(r for r in prep_recs if r["case"] == "main_path_room")
+    for name, k, plain in (("preprocess_fwd", "fwd", "plain_fwd"),
+                           ("preprocess_bwd", "bwd", "plain_fwd_bwd")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="gs_slam_analytica_jacobian_tpu_torch/csrc/preprocess.cu",
+            replaces="none: " + path_launches.OTHER_SOURCES[
+                "csrc/preprocess.cu"],
+            launches=total[name], max_abs_err=main[f"{k}_max_abs_err"],
+            bit_equal=all(main[f"{k}_bit_equal"].values()),
+            ms=main.get(f"{k}_device_ms"), wall_ms=main[f"{k}_wall_ms"],
+            plain_ms=main.get(f"{plain}_device_ms"),
+            plain_wall_ms=main[f"{plain}_wall_ms"],
+            bound_ms=main[f"bound_{k}_ms"], bound_by="bytes",
+            library_ms=None, shape=f"{main['shape']}, {main['capacity']} "
+            "slots",
+            by_capacity=[dict(capacity=r["capacity"],
+                              ms=r.get(f"{k}_device_ms"),
+                              wall_ms=r[f"{k}_wall_ms"],
+                              plain_ms=r.get(f"{plain}_device_ms"),
+                              bound_ms=r[f"bound_{k}_ms"])
+                         for r in prep_recs if r["case"] != "main_path_room"
+                         and f"{k}_wall_ms" in r]))
     # B5: one entry per variant, at the script's shape (ms and group_ms
     # in turns); launches from the script's own run (phase_abl16); then
     # the yardsticks, the first port's design (launched by no run)

@@ -69,6 +69,9 @@ LIBRARIES = {
                            {"composite16_bwd": _BWD_ARGS}),
     "tile_kernel16_bwd": ("tile_kernel16_bwd.cu",
                           {"composite16_bwd_walk": _BWD_ARGS}),
+    "preprocess": ("preprocess.cu",
+                   {"preprocess_fwd": [_VP] * 18,
+                    "preprocess_bwd": [_VP] * 21}),
     "abl16": ("abl16.cu", {f"abl16_{v}{d}": _ABL16_ARGS for v in (
         "full", "noexp", "noscan", "nomxu", "notrans", "minimal", "dyn",
         "prodbody") for d in ("", "_group")}),

@@ -119,6 +119,19 @@ PALLAS_SITES = {
 }
 
 
+# CUDA sources that replace no pl.pallas_call site, with the JAX code
+# whose work they do: tests/test_torch_inventory.py holds every source in
+# csrc/ to a site of PALLAS_SITES or to a line here. Their wrappers count
+# their launches themselves, outside COUNTERS.
+OTHER_SOURCES = {
+    "csrc/preprocess.cu": (
+        "ops/gaussian_math.py preprocess, the map's activations and "
+        "ops/renderer_tiled.py pack_table: plain jnp that XLA fuses; the "
+        "port's ops/preprocess_fused.py counts preprocess_fwd.launches and "
+        "preprocess_bwd.launches"),
+}
+
+
 def site_of(name: str) -> Tuple[str, str, str]:
     """(site, CUDA source, variant lines) of a COUNTERS name, a yardstick
     or B5's entry, from PALLAS_SITES."""

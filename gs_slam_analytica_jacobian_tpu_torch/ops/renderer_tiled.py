@@ -6,7 +6,10 @@ pair plan -> packed gather -> 32x32 compositing kernel, or under
 delta tau: torch autograd supplies the preprocess backward, the gather's
 backward is the cumsum segment-reduce (ops/pair_gather.py) and the
 compositing's is the backward kernel (ops/tile_kernel2.py,
-ops/tile_kernel16.py). The plan is
+ops/tile_kernel16.py). ``render_prepared`` is everything after the
+preprocess, from a ``Preprocessed`` and its packed table: the path
+``slam/render_api.py`` takes with the fused preprocess
+(ops/preprocess_fused.py), which starts from the map. The plan is
 non-differentiable structure, reusable across iterations (``plan=``).
 On CUDA tensors the compositing runs the hand-written kernels; on CPU
 tensors their plain PyTorch versions. ``ops/renderer_ref.py`` is the
@@ -59,6 +62,17 @@ def pack_table(prep: Preprocessed) -> torch.Tensor:
         rect,
         torch.zeros(n, FEAT_DIM - 14, dtype=dt, device=prep.depth.device),
     ], dim=-1)
+
+
+def mask_active(prep: Preprocessed, active: torch.Tensor) -> Preprocessed:
+    """Only ``active`` rows render: valid, radius and tiles_touched
+    masked."""
+    return prep._replace(
+        valid=prep.valid & active,
+        radius=torch.where(active, prep.radius,
+                           torch.zeros_like(prep.radius)),
+        tiles_touched=torch.where(active, prep.tiles_touched,
+                                  torch.zeros_like(prep.tiles_touched)))
 
 
 def make_plan(
@@ -117,7 +131,6 @@ def render(
     screen-space mean gradient densification reads). ``device=None``
     means CUDA (raises without a GPU); every tensor argument must already
     lie on that device."""
-    _not_ported(mxu=mxu, bf16=bf16, tile16=tile16)
     dev = resolve_device(device)
     require_on(dev, means3d=means3d, cov6=cov6, opacities=opacities,
                shs=shs, w2c=w2c, proj=proj, tau=tau, bg=bg, active=active,
@@ -127,16 +140,32 @@ def render(
         fx, fy, width, height, tanfovx, tanfovy,
         mean2d_offset=mean2d_offset, low_pass=low_pass)
     if active is not None:
-        prep = prep._replace(
-            valid=prep.valid & active,
-            radius=torch.where(active, prep.radius,
-                               torch.zeros_like(prep.radius)),
-            tiles_touched=torch.where(active, prep.tiles_touched,
-                                      torch.zeros_like(prep.tiles_touched)))
+        prep = mask_active(prep, active)
+    return render_prepared(prep, pack_table(prep), width, height, bg,
+                           pair_capacity, plan, need_n_touched, bf16,
+                           tile16, nt_weight, mxu)
 
+
+def render_prepared(
+    prep: Preprocessed,
+    table: torch.Tensor,
+    width: int, height: int,
+    bg: torch.Tensor,
+    pair_capacity: int = 1 << 19,
+    plan: Optional[PairPlan] = None,
+    need_n_touched: bool = True,
+    bf16: bool = False,
+    tile16: bool = False,
+    nt_weight: bool = False,
+    mxu: bool = False,
+) -> RenderOutput:
+    """``render`` after the preprocess: plan (unless given), gather the
+    packed ``table`` (N, 16), composite, add the background. ``prep``'s
+    active mask is already applied."""
+    _not_ported(mxu=mxu, bf16=bf16, tile16=tile16)
     if plan is None:
         plan = make_plan(prep, width, height, pair_capacity, tile16=tile16)
-    feat = pair_gather(pack_table(prep), plan)
+    feat = pair_gather(table, plan)
     if tile16:
         n_gx, n_gy = grid_dims16(width, height)
         out = composite16(feat, plan.ranges, n_gx, n_gy, width, height,
@@ -152,7 +181,8 @@ def render(
     if need_n_touched:
         nt = segment_reduce_pairs(out.n_touched_pairs, plan).to(torch.int32)
     else:
-        nt = torch.zeros(means3d.shape[0], dtype=torch.int32, device=dev)
+        nt = torch.zeros(table.shape[0], dtype=torch.int32,
+                         device=table.device)
 
     return RenderOutput(
         color=color,

@@ -27,8 +27,9 @@ allows up to 1e-2, and dense surfaces (the bench's room map) come near
 it. Within a slab the compositing has the reference's full semantics.
 
 Each slab composites on the dense oracle (ops/renderer_ref.py, the
-default) or on the tiled renderer (``tiled=True``: B1' forward and B2
-backward on the card, their plain versions on the CPU). Every rank calls
+default) or on the tiled renderer (``tiled=True``: the fused preprocess,
+B1' forward and B2 backward on the card, their plain versions on the
+CPU). Every rank calls
 these functions with the same arguments (SPMD, parallel/sharding.py).
 """
 
@@ -42,6 +43,7 @@ from ..models.camera import Camera
 from ..models.gaussian_map import GaussianMap, PARAM_FIELDS
 from ..ops import losses, renderer_ref, renderer_tiled
 from ..ops.gaussian_math import build_cov3d
+from ..ops.preprocess_fused import map_preprocess
 from .sharding import Mesh, all_gather, check_mesh
 
 
@@ -65,23 +67,28 @@ class _GatherSlabs(torch.autograd.Function):
 def _render_slab(params_sh: Dict[str, torch.Tensor], active_sh, gm, cam,
                  tiled: bool = False, pair_capacity: int = 1 << 16):
     """Render one depth slab from raw (slab) parameter tensors; returns the
-    PRE-background (color_sum, depth_sum, final_T)."""
-    cov6 = build_cov3d(torch.exp(params_sh["scaling"]),
-                       params_sh["rotation"])
-    opac = torch.sigmoid(params_sh["opacity"])[:, 0]
-    feats = torch.cat([params_sh["features_dc"],
-                       params_sh["features_rest"]], dim=1)
+    PRE-background (color_sum, depth_sum, final_T). The tiled slab starts
+    from the raw parameters as ``render_api.render`` does
+    (``map_preprocess``: the fused kernel pair on the card)."""
     dev = gm.device
-    kw = (dict(pair_capacity=pair_capacity, need_n_touched=False)
-          if tiled else {})
-    render_fn = renderer_tiled.render if tiled else renderer_ref.render
-    out = render_fn(
-        params_sh["xyz"], cov6, opac, feats, gm.active_sh_degree,
-        cam.w2c(), cam.projection(),
+    bg = torch.zeros(3, dtype=torch.float32, device=dev)
+    if tiled:
+        table, prep = map_preprocess(gm.replace(**params_sh), cam,
+                                     active=active_sh)
+        out = renderer_tiled.render_prepared(
+            prep, table, cam.width, cam.height, bg,
+            pair_capacity=pair_capacity, need_n_touched=False)
+        return out.color, out.depth[0], out.final_T
+    out = renderer_ref.render(
+        params_sh["xyz"],
+        build_cov3d(torch.exp(params_sh["scaling"]), params_sh["rotation"]),
+        torch.sigmoid(params_sh["opacity"])[:, 0],
+        torch.cat([params_sh["features_dc"], params_sh["features_rest"]],
+                  dim=1),
+        gm.active_sh_degree, cam.w2c(), cam.projection(),
         torch.zeros(6, dtype=torch.float32, device=dev),
         cam.fx, cam.fy, cam.width, cam.height, cam.tanfovx, cam.tanfovy,
-        torch.zeros(3, dtype=torch.float32, device=dev), active=active_sh,
-        device=dev, **kw)
+        bg, active=active_sh, device=dev)
     return out.color, out.depth[0], out.final_T
 
 

@@ -1,7 +1,10 @@
 """render(): the map + viewpoint API over the tiled renderer and the
 dense oracle (torch port of slam/render_api.py). ``render`` is
 differentiable; ``make_render_plan`` builds non-differentiable
-structure."""
+structure. Both start the tiled path from the map's raw parameters with
+``ops/preprocess_fused.map_preprocess`` (one CUDA kernel forward and its
+analytic backward on the card, the plain autograd version on the CPU);
+the oracle keeps the plain ``gaussian_math.preprocess``."""
 
 from __future__ import annotations
 
@@ -12,8 +15,8 @@ import torch
 from ..device import require_on, resolve_device
 from ..models.camera import Camera, PoseState
 from ..models.gaussian_map import GaussianMap
-from ..ops import gaussian_math as gmath
 from ..ops import renderer_ref, renderer_tiled
+from ..ops.preprocess_fused import map_preprocess
 from ..ops.renderer_ref import RenderOutput
 from ..ops.renderer_tiled import make_plan
 from ..utils import trace
@@ -53,22 +56,25 @@ def render(
     dev = _check_inputs(gm, cam, device)
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
-    tau = (pose.tau if pose is not None
-           else torch.zeros(6, dtype=torch.float32, device=dev))
-    kwargs = dict(
-        means3d=gm.xyz, cov6=gm.get_cov6(scaling_modifier),
-        opacities=gm.get_opacity(), shs=gm.get_features(),
-        sh_degree=gm.active_sh_degree, w2c=cam.w2c(),
-        proj=cam.projection(), tau=tau,
-        fx=cam.fx, fy=cam.fy, width=cam.width, height=cam.height,
-        tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, bg=bg, active=gm.active,
-        mean2d_offset=mean2d_offset, device=dev)
+    tau = pose.tau if pose is not None else None
+    require_on(dev, tau=tau, mean2d_offset=mean2d_offset, bg=bg)
     if use_oracle:
-        return renderer_ref.render(**kwargs)
-    return renderer_tiled.render(
-        **kwargs, pair_capacity=pair_capacity, plan=plan,
-        need_n_touched=need_n_touched, bf16=bf16, tile16=tile16,
-        nt_weight=nt_weight, mxu=mxu, low_pass=low_pass)
+        return renderer_ref.render(
+            means3d=gm.xyz, cov6=gm.get_cov6(scaling_modifier),
+            opacities=gm.get_opacity(), shs=gm.get_features(),
+            sh_degree=gm.active_sh_degree, w2c=cam.w2c(),
+            proj=cam.projection(),
+            tau=(tau if tau is not None
+                 else torch.zeros(6, dtype=torch.float32, device=dev)),
+            fx=cam.fx, fy=cam.fy, width=cam.width, height=cam.height,
+            tanfovx=cam.tanfovx, tanfovy=cam.tanfovy, bg=bg,
+            active=gm.active, mean2d_offset=mean2d_offset, device=dev)
+    table, prep = map_preprocess(gm, cam, tau, mean2d_offset,
+                                 scaling_modifier, low_pass, gm.active)
+    return renderer_tiled.render_prepared(
+        prep, table, cam.width, cam.height, bg, pair_capacity=pair_capacity,
+        plan=plan, need_n_touched=need_n_touched, bf16=bf16, tile16=tile16,
+        nt_weight=nt_weight, mxu=mxu)
 
 
 def mark_visible(means3d: torch.Tensor, w2c: torch.Tensor,
@@ -105,14 +111,10 @@ def make_render_plan(
     require_on(dev, extra_active=extra_active)
     trace.count("render.plans_built")
     with trace.span("render.plan"):
-        prep = gmath.preprocess(
-            gm.xyz, gm.get_cov6(scaling_modifier), gm.get_opacity(),
-            gm.get_features(), gm.active_sh_degree, cam.w2c(),
-            cam.projection(), torch.zeros(6, dtype=torch.float32, device=dev),
-            cam.fx, cam.fy, cam.width, cam.height, cam.tanfovx, cam.tanfovy)
         active = (gm.active if extra_active is None
                   else gm.active & extra_active)
+        _, prep = map_preprocess(gm, cam, scaling_modifier=scaling_modifier,
+                                 active=active)
         return make_plan(prep, cam.width, cam.height, pair_capacity,
-                         active=active, radius_scale=radius_scale,
-                         radius_pad=radius_pad, tile16=tile16,
-                         opa_growth=opa_growth)
+                         radius_scale=radius_scale, radius_pad=radius_pad,
+                         tile16=tile16, opa_growth=opa_growth)

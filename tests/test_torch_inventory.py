@@ -13,7 +13,8 @@ Read as text (``ast``; this file imports neither jax nor torch):
 - every ``pl.pallas_call(`` site of the JAX package and ``scripts/`` is
   a key of the port's ``ops/launches.py`` ``PALLAS_SITES``, and no key is
   stale; each names CUDA sources that exist and ``COUNTERS`` names,
-  which cover ``COUNTERS`` exactly.
+  which cover ``COUNTERS`` exactly. Every CUDA source in ``csrc/`` is a
+  site's or one of ``OTHER_SOURCES``, the kernels that replace no site.
 """
 
 import ast
@@ -225,9 +226,10 @@ def pallas_sites():
     return sites
 
 
-def registry():
-    """PALLAS_SITES and the keys of COUNTERS, read from ops/launches.py
-    without importing it (it imports torch)."""
+def launches_module():
+    """The assignments of ops/launches.py, read without importing it (it
+    imports torch): its dict literals by name, and the keys of
+    COUNTERS."""
     tree = ast.parse(LAUNCHES.read_text())
     env, counters = {}, None
     for node in tree.body:
@@ -239,6 +241,12 @@ def registry():
         else:
             exec(compile(ast.Module([node], []), str(LAUNCHES), "exec"),
                  {"__builtins__": {"dict": dict}}, env)
+    return env, counters
+
+
+def registry():
+    """PALLAS_SITES and the keys of COUNTERS."""
+    env, counters = launches_module()
     return env["PALLAS_SITES"], counters
 
 
@@ -267,7 +275,11 @@ def test_registry_sources_exist():
             assert fn.split("(")[0] in names(PORT_PKG / path), entry
     built = {p.relative_to(PORT_PKG).as_posix()
              for p in (PORT_PKG / "csrc").glob("*.cu")}
-    assert used == built, f"CUDA sources of no site: {built - used}"
+    others = set(launches_module()[0]["OTHER_SOURCES"])
+    assert not used & others, used & others
+    assert used | others == built, (
+        f"CUDA sources of no site: {built - used - others}; "
+        f"stale: {(used | others) - built}")
 
 
 def test_registry_counters_cover_COUNTERS():
