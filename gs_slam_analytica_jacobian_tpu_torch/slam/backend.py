@@ -43,7 +43,7 @@ from ..models.camera import Camera
 from ..models.gaussian_map import GaussianMap
 from ..ops.lie import pose_matrix
 from ..utils.logging import Log
-from ..utils.trace import span
+from ..utils.trace import count, span
 from . import mapping, seeding
 from .mapping import KFStore, PoseAdamState
 
@@ -480,6 +480,7 @@ class BackEnd:
                     self.gm, self.gm_adam = gmap.prune(self.gm, self.gm_adam,
                                                        to_prune)
                     self._invalidate_plans()
+                    count("backend.mono_prune")
                 if not self.initialized:
                     self.initialized = True
                     Log("Initialized SLAM", tag="Backend")

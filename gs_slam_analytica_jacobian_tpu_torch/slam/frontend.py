@@ -71,6 +71,48 @@ def _overlap_stats(curr_vis, occ_list):
     return torch.cat([inter, union, cnt_occ, cnt_cur[None]]).cpu().numpy()
 
 
+def mono_initial_depth(gt_image, depth, opacity, rgb_boundary_threshold,
+                       rng, frame_idx: int = -1) -> np.ndarray:
+    """A monocular keyframe's seeding depth (reference
+    slam_frontend.py:73-106), on the host: (H, W) float32.
+
+    Without a render (``depth`` None, the first keyframe) every pixel
+    draws 2 + 0.3 N(0, 1). Otherwise ``depth`` and ``opacity`` (1, H, W)
+    are the map's render at the keyframe's pose: pixels with depth > 0,
+    opacity > 0.95 and a non-black image give the median and standard
+    deviation; depths outside median +- std, and invalid pixels, take the
+    median with std / 2 noise, the rest keep their depth with std / 5
+    noise. Black pixels of ``gt_image`` (3, H, W) get 0. The noise comes
+    from the numpy generator ``rng``, one draw a pixel in row-major
+    order. The span ``frontend.mono_depth`` covers the copies to the host
+    (and so the wait for the render) and keeps the valid-pixel count,
+    median and std."""
+    with span("frontend.mono_depth", frame_idx=frame_idx) as sp:
+        gt_img = gt_image.cpu().numpy()
+        valid_rgb = gt_img.sum(axis=0) > rgb_boundary_threshold
+        if depth is None:
+            initial = 2 * np.ones(gt_img.shape[1:], np.float32)
+            initial += (rng.standard_normal(initial.shape)
+                        .astype(np.float32) * 0.3)
+        else:
+            depth = depth.cpu().numpy()[0]
+            opac = opacity.cpu().numpy()[0]
+            valid = (depth > 0) & (opac > 0.95) & valid_rgb
+            vals = depth[valid]
+            if vals.size == 0:
+                med, std = 2.0, 0.5
+            else:
+                med, std = float(np.median(vals)), float(np.std(vals))
+            sp.attrs.update(n_valid=int(vals.size), median=med, std=std)
+            invalid = (depth > med + std) | (depth < med - std) | ~valid
+            depth = np.where(invalid, med, depth)
+            noise_scale = np.where(invalid, std * 0.5, std * 0.2)
+            initial = depth + (rng.standard_normal(depth.shape)
+                               .astype(np.float32) * noise_scale)
+        initial[~valid_rgb] = 0
+        return initial.astype(np.float32)
+
+
 @dataclass
 class FrameRecord:
     """Per-frame state. Poses are host numpy (the keyframing logic is
@@ -363,30 +405,9 @@ class FrontEnd:
                          > self.rgb_boundary_threshold)
             return torch.where(valid_rgb, rec.gt_depth,
                                torch.zeros_like(rec.gt_depth))
-        # monocular: host path (median/std statistics + host-rng noise,
-        # reference slam_frontend.py:73-106)
-        gt_img = rec.gt_image.cpu().numpy()
-        valid_rgb = gt_img.sum(axis=0) > self.rgb_boundary_threshold
-        if depth is None:
-            initial = 2 * np.ones(gt_img.shape[1:], np.float32)
-            initial += (self._rng.standard_normal(initial.shape)
-                        .astype(np.float32) * 0.3)
-        else:
-            depth = depth.cpu().numpy()[0]
-            opac = opacity.cpu().numpy()[0]
-            valid = (depth > 0) & (opac > 0.95) & valid_rgb
-            vals = depth[valid]
-            if vals.size == 0:
-                med, std = 2.0, 0.5
-            else:
-                med, std = float(np.median(vals)), float(np.std(vals))
-            invalid = (depth > med + std) | (depth < med - std) | ~valid
-            depth = np.where(invalid, med, depth)
-            noise_scale = np.where(invalid, std * 0.5, std * 0.2)
-            initial = depth + (self._rng.standard_normal(depth.shape)
-                               .astype(np.float32) * noise_scale)
-        initial[~valid_rgb] = 0
-        return initial.astype(np.float32)
+        return mono_initial_depth(rec.gt_image, depth, opacity,
+                                  self.rgb_boundary_threshold, self._rng,
+                                  frame_idx=idx)
 
     # ------------------------------------------------------------------
     def initialize(self, idx: int, rec: FrameRecord):
