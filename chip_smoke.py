@@ -241,6 +241,20 @@ their device times. Both counters are in WRAPPERS: the main path must
 launch the forward, the exact-gradient and mapping paths both; the
 kernels line has a row for each (device ms, wall, plain, bound of
 PREP_FWD_BYTES / PREP_BWD_BYTES a slot, by capacity).
+
+P2, the pair gather (csrc/pair_gather.cu, ops/pair_gather.py), which every
+render gathers through and every differentiated render sums back through:
+phase 2's ``pair_gather`` part builds the main path's plan (the room map
+at 1200x680, PAIR_CAP pairs) and its s=2 and s=4 levels, then tum-map's
+mapping plan (PG_PAIR_CAP pairs at 640x480) over the room map in
+PG_CAPACITIES slots, and holds pair_gather_fwd equal to
+pair_gather_plain, segment_reduce_fwd within PG_BWD_REL of the float64
+segment sum (the plain chain's own gap reported beside it), exact on
+integer touch counts and the same from two launches; it times each call
+but the levels' and its plain version, and the deferred profiled pass
+reads their device times. Both counters are in WRAPPERS: the main path
+and the mapping paths must launch both; the kernels line has a row for
+each (the main path's plan, the others by case).
 A failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
@@ -270,6 +284,7 @@ from gs_slam_analytica_jacobian_tpu_torch.ops import camera_math as cm  # noqa: 
 from gs_slam_analytica_jacobian_tpu_torch.ops import gaussian_math as gmath  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import launches as path_launches  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import losses  # noqa: E402
+from gs_slam_analytica_jacobian_tpu_torch.ops import pair_gather as pg  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import preprocess_fused as pf  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled  # noqa: E402
 from gs_slam_analytica_jacobian_tpu_torch.ops import tile_kernel16 as tk16  # noqa: E402
@@ -1838,6 +1853,31 @@ def cublas_version():
     return None, None
 
 
+def tum_room_maps(dev, capacities):
+    """For each of ``capacities``: (capacity, the room map's first
+    min(N_ROOM, capacity) Gaussians in that many slots, the rest inactive,
+    the camera inside the room at 640x480 with TUM fr1/desk's
+    intrinsics)."""
+    m = make_room_map(N_ROOM, np.random.default_rng(1))
+    T = se3_exp(torch.tensor([0.05, -0.02, 0.4, 0.02, -0.05, 0.01],
+                             dtype=torch.float64))
+    tum = Camera.create(T[:3, :3].numpy(), T[:3, 3].numpy(), TUM_FX, TUM_FY,
+                        TUM_CX, TUM_CY, TUM_W, TUM_H, device=dev)
+    for cap in capacities:
+        k = min(N_ROOM, cap)
+        yield cap, gmap.from_numpy(**{f: v[:k] for f, v in m.items()},
+                                   max_sh_degree=0, capacity=cap,
+                                   device=dev), tum
+
+
+def back_to_back(fn, calls):
+    """A function that calls ``fn`` ``calls`` times."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return run
+
+
 def prep_case(name, gm, cam, seed, time_it):
     """preprocess_fwd and preprocess_bwd on ``gm`` at ``cam`` (a seeded
     tau and screen-space offset, the map's active mask, as a mapping render
@@ -1923,17 +1963,12 @@ def prep_case(name, gm, cam, seed, time_it):
     fns = dict(fwd=fwd, bwd=bwd, plain_fwd=plain_fwd,
                plain_fwd_bwd=plain_fwd_bwd)
 
-    def calls(fn):
-        def run():
-            for _ in range(PREP_CALLS):
-                fn()
-        return run
-
+    fns = {k: back_to_back(fn, PREP_CALLS) for k, fn in fns.items()}
     if time_it:
         for k, fn in fns.items():
-            rec[f"{k}_wall_ms"] = time_ms(calls(fn)) / PREP_CALLS
+            rec[f"{k}_wall_ms"] = time_ms(fn) / PREP_CALLS
     print("preprocess-vs-plain " + json.dumps(rec), flush=True)
-    return rec, {k: calls(fn) for k, fn in fns.items()}
+    return rec, fns
 
 
 def phase_preprocess(dev, gm, cam):
@@ -1950,15 +1985,7 @@ def phase_preprocess(dev, gm, cam):
         cublas_path=path, card=card_line())), flush=True)
     rec, f = prep_case("main_path_room", gm, cam, 0, True)
     recs, fns = [rec], [f]
-    m = make_room_map(N_ROOM, np.random.default_rng(1))
-    T = se3_exp(torch.tensor([0.05, -0.02, 0.4, 0.02, -0.05, 0.01],
-                             dtype=torch.float64))
-    tum = Camera.create(T[:3, :3].numpy(), T[:3, 3].numpy(), TUM_FX, TUM_FY,
-                        TUM_CX, TUM_CY, TUM_W, TUM_H, device=dev)
-    for cap in PREP_CAPACITIES:
-        k = min(N_ROOM, cap)
-        g = gmap.from_numpy(**{f: v[:k] for f, v in m.items()},
-                            max_sh_degree=0, capacity=cap, device=dev)
+    for cap, g, tum in tum_room_maps(dev, PREP_CAPACITIES):
         rec, f = prep_case(f"tum_{cap}", g, tum, cap,
                            cap in (1 << 16, 1 << 18))
         recs.append(rec)
@@ -1977,6 +2004,132 @@ def phase_preprocess(dev, gm, cam):
                 rec[f"{k}_launches"] = p["kernel_launches"] / PREP_CALLS
             print("preprocess-profile " + json.dumps(rec), flush=True)
     return recs, prep_profile
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the pair gather's kernels (P2) against their plain versions
+# ---------------------------------------------------------------------------
+
+# The main path's renders (the room map at 1200x680 and PAIR_CAP pairs,
+# pad 4, with its s=2 and s=4 pyramid levels at 2^19 pairs, pad 2) and
+# tum-map's mapping renders: pair capacity 2^20 at 640x480, the map in 2^18
+# slots (tum-map's) or 2^17 (tum-mono-map's pruned map), the room map's
+# first min(N_ROOM, slots) Gaussians active, seen as phase_preprocess sees
+# them. Bytes a call needs (P2's bound at HBM_BYTES_PER_S): the forward
+# reads gid1 (4 B a slot) and each kept pair's table row (64 B) and writes
+# every slot's row (64 B); the backward reads the emitted pairs' indices (4
+# B), the kept pairs' gradient rows (64 B) and the segments (8 B a slot)
+# and writes the table's gradient (64 B a slot).
+PG_PAIR_CAP = 1 << 20
+PG_LEVEL_CAP = 1 << 19
+PG_CAPACITIES = (1 << 18, 1 << 17)
+PG_CALLS = 20
+# the backward against the float64 segment sum: each column's norm of the
+# difference within PG_BWD_REL of the column's norm (a direct float32 sum
+# of at most a few hundred terms a Gaussian)
+PG_BWD_REL = 1e-6
+PG_KERNELS = ("pair_gather_fwd", "segment_reduce_fwd")
+
+
+def pg_case(name, gm, cam, seed, pair_cap=PG_PAIR_CAP, pad=2.0,
+            time_it=True):
+    """pair_gather_fwd and segment_reduce_fwd on the plan of ``gm`` at
+    ``cam`` (``pair_cap`` pairs, radius pad ``pad``) against
+    pair_gather_plain and segment_reduce_plain: the forward equal, the
+    backward's gap to the float64 segment sum (and the plain version's),
+    F = 1 touch counts exact, two backward launches the same; under
+    ``time_it`` each call's wall (CUDA events over PG_CALLS calls, median
+    of 7) beside the plain version's and the bound."""
+    dev = gm.device
+    with torch.no_grad():
+        table, prep = pf.map_preprocess(gm, cam, active=gm.active)
+    plan = make_plan(prep, cam.width, cam.height, pair_cap, radius_pad=pad)
+    b_al, n = plan.pair_gid1.shape[0], gm.capacity
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dfeat = torch.randn(b_al, 16, generator=g, device=dev)
+    counts = torch.randint(0, 1025, (b_al,), generator=g, device=dev).float()
+    feat = pg.pair_gather_fwd(table, plan)
+    ref_feat = pg.pair_gather_plain(table, plan)
+    got = pg.segment_reduce_fwd(dfeat, plan)
+    again = pg.segment_reduce_fwd(dfeat, plan)
+    plain = pg.segment_reduce_plain(dfeat, plan)
+    ref = pg.segment_reduce_plain(dfeat.double(), plan)
+    nt = pg.segment_reduce_fwd(counts[:, None], plan)
+    nt_ref = pg.segment_reduce_plain(counts[:, None].double(), plan)
+    torch.cuda.synchronize()
+    norm = ref.norm(dim=0)
+    pairs, kept = int(plan.num_pairs), int(plan.num_kept)
+    rec = dict(case=name, capacity=n, active=int(gm.active.sum()),
+               pair_capacity=pair_cap, b_al=b_al, num_pairs=pairs,
+               num_kept=kept, overflow=int(plan.overflow),
+               shape=f"{cam.width}x{cam.height}",
+               fwd_equal=bool(torch.equal(feat, ref_feat)),
+               bwd_rel_gap=float(((got.double() - ref).norm(dim=0)
+                                  / norm).max()),
+               plain_bwd_rel_gap=float(((plain.double() - ref).norm(dim=0)
+                                        / norm).max()),
+               bwd_max_abs_err=float((got.double() - ref).abs().max()),
+               plain_bwd_max_abs_err=float((plain.double() - ref)
+                                           .abs().max()),
+               ntouch_exact=bool(torch.equal(nt.double(), nt_ref)),
+               repeat_equal=bool(torch.equal(got, again)),
+               bound_fwd_ms=(4 * b_al + 64 * kept + 64 * b_al)
+               / HBM_BYTES_PER_S * 1e3,
+               bound_bwd_ms=(4 * pairs + 64 * kept + 8 * n + 64 * n)
+               / HBM_BYTES_PER_S * 1e3)
+    if not rec["fwd_equal"]:
+        fail(f"{name}: the pair gather kernel is not the plain version")
+    if not (rec["bwd_rel_gap"] <= PG_BWD_REL and rec["repeat_equal"]
+            and rec["ntouch_exact"]):
+        fail(f"{name}: the segment sum kernel is {rec['bwd_rel_gap']:.3e} "
+             f"from the float64 sum (limit {PG_BWD_REL}), the same from two "
+             f"launches: {rec['repeat_equal']}, touch counts exact: "
+             f"{rec['ntouch_exact']}")
+
+    fns = dict(fwd=lambda: pg.pair_gather_fwd(table, plan),
+               bwd=lambda: pg.segment_reduce_fwd(dfeat, plan),
+               plain_fwd=lambda: pg.pair_gather_plain(table, plan),
+               plain_bwd=lambda: pg.segment_reduce_plain(dfeat, plan))
+
+    fns = {k: back_to_back(fn, PG_CALLS) for k, fn in fns.items()}
+    if time_it:
+        for k, fn in fns.items():
+            rec[f"{k}_wall_ms"] = time_ms(fn) / PG_CALLS
+    print("pair-gather-vs-plain " + json.dumps(rec), flush=True)
+    return rec, fns
+
+
+def phase_pair_gather(dev, gm, cam):
+    """P2, the pair gather and its segment-sum backward (pg_case): the
+    main path's plan (the room map at ``cam``, PAIR_CAP pairs, pad 4) and
+    its s=2 and s=4 levels (PG_LEVEL_CAP pairs, pad 2; checked, not
+    timed), then tum-map's mapping plan (PG_PAIR_CAP pairs at 640x480)
+    over the room map in each of PG_CAPACITIES slots. Returns the records
+    (the main path's first) and the deferred profiled pass that adds each
+    timed call's device time and launches."""
+    rec, f = pg_case("main_path_room", gm, cam, 0, PAIR_CAP, 4.0)
+    recs, fns = [rec], [f]
+    for s in (2, 4):
+        rec, f = pg_case(f"main_path_room_s{s}", gm,
+                         tracking._cam_level(cam, s), s, PG_LEVEL_CAP, 2.0,
+                         time_it=False)
+        recs.append(rec)
+        fns.append(f)
+    for cap, g, tum in tum_room_maps(dev, PG_CAPACITIES):
+        rec, f = pg_case(f"tum_{cap}", g, tum, cap)
+        recs.append(rec)
+        fns.append(f)
+
+    def pg_profile():
+        for rec, f in zip(recs, fns):
+            if "fwd_wall_ms" not in rec:
+                continue
+            for k, fn in f.items():
+                p = profile_call(fn, f"profile-pair-gather-{rec['case']}-{k}")
+                rec[f"{k}_device_ms"] = p["device_busy_ms"] / PG_CALLS
+                rec[f"{k}_launches"] = p["kernel_launches"] / PG_CALLS
+            print("pair-gather-profile " + json.dumps(rec), flush=True)
+    return recs, pg_profile
 
 
 # bench.py's operating point (BENCH_r05.json detail) without its adaptive
@@ -2185,12 +2338,15 @@ def count_syncs(fn):
 # kernel name -> (wrapper, its launch counter): the paths' kernels
 # (ops/launches.py: the bf16 and mxu variants count in their wrapper's
 # ``launches_bf16``, ``launches_mxu`` and, the backward under both,
-# ``launches_bf16_mxu``), the fused preprocess (P1, outside COUNTERS: it
-# replaces no Pallas site), then the yardsticks
+# ``launches_bf16_mxu``), the fused preprocess (P1) and the pair gather
+# (P2), outside COUNTERS as they replace no Pallas site, then the
+# yardsticks
 WRAPPERS = dict(
     path_launches.COUNTERS,
     preprocess_fwd=(pf.preprocess_fwd, "launches"),
     preprocess_bwd=(pf.preprocess_bwd, "launches"),
+    pair_gather_fwd=(pg.pair_gather_fwd, "launches"),
+    segment_reduce_fwd=(pg.segment_reduce_fwd, "launches"),
     composite32_fwd_tile1024=(tk.composite32_fwd_tile1024, "launches"),
     composite32_bwd_tile1024=(tk.composite32_bwd_tile1024, "launches"),
     composite32_fwd_mxu_tile1024=(tk.composite32_fwd_mxu_tile1024,
@@ -3337,6 +3493,7 @@ def run(dev):
     cases_mxu, b2_mxu_cases, _ = phase_kernels_mxu(dev, gm, cam, gt1)
     abl = phase_abl16(dev)
     prep_recs, prep_profile = phase_preprocess(dev, gm, cam)
+    pg_recs, pg_profile = phase_pair_gather(dev, gm, cam)
     phase_done("kernels")
 
     # phase 3: the main path, with launch counts from 0
@@ -3351,7 +3508,8 @@ def run(dev):
                        gt_overflow)
     launches = {"main-path": read_counts(
         "main-path", ("composite32_fwd", "composite32_fwd_ntouch",
-                      "preprocess_fwd"))}
+                      "preprocess_fwd", "pair_gather_fwd",
+                      "segment_reduce_fwd"))}
     if not rec["finite"]:
         fail("non-finite tracking output")
     if rec["overflow"] > 0:
@@ -3363,7 +3521,7 @@ def run(dev):
     # rest of its life (PERF.md §7), so every profiled pass is deferred to
     # ``profiles``, run after the last timed one
     profiles = [lambda: phase_profile(dev, gm, cam, gts, poses),
-                prep_profile]
+                prep_profile, pg_profile]
     # the schedule of the JAX record
     r05 = run_schedule("bench-r05-schedule", dev, gm, cam, gts, poses,
                        R05_KW, gt_overflow)
@@ -3535,7 +3693,8 @@ def run(dev):
         reset_counts()
         maps[name], be = run_mapping(name, dev, cam, kf_gts, kf_poses, t16)
         profiles.append(functools.partial(profile_mapping, name, be))
-        launches[name] = read_counts(name, req + PREP_KERNELS, forbidden=forb)
+        launches[name] = read_counts(name, req + PREP_KERNELS + PG_KERNELS,
+                                     forbidden=forb)
         if name == "mapping":
             depth_reg_check(name, be, kf_gts)
     a, b = maps["mapping"], maps["mapping-tile16"]
@@ -3795,6 +3954,45 @@ def run(dev):
                               bound_ms=r[f"bound_{k}_ms"])
                          for r in prep_recs if r["case"] != "main_path_room"
                          and f"{k}_wall_ms" in r]))
+    # P2: the pair gather and its segment sum on the main path's plan (ms:
+    # device time a call, from the profiled pass; wall_ms: a call's wall
+    # among calls issued back to back; plain: the plain chain on the card),
+    # tum-map's plan with the map in 2^18 and 2^17 slots beside it. The
+    # forward is held to the plain version (bit_equal), the backward to
+    # the float64 segment sum (bwd_rel_gap, the plain chain's beside it)
+    # and to itself on a second launch (repeat_bit_equal)
+    r = pg_recs[0]
+    for name, k in (("pair_gather_fwd", "fwd"), ("segment_reduce_fwd", "bwd")):
+        if k == "fwd":
+            check = dict(max_abs_err=0.0, bit_equal=all(
+                c["fwd_equal"] for c in pg_recs))
+        else:
+            check = dict(max_abs_err=r["bwd_max_abs_err"],
+                         bwd_rel_gap=max(c["bwd_rel_gap"] for c in pg_recs),
+                         plain_bwd_rel_gap=max(c["plain_bwd_rel_gap"]
+                                               for c in pg_recs),
+                         repeat_bit_equal=all(c["repeat_equal"]
+                                              for c in pg_recs))
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="gs_slam_analytica_jacobian_tpu_torch/csrc/pair_gather.cu",
+            replaces="none: " + path_launches.OTHER_SOURCES[
+                "csrc/pair_gather.cu"],
+            launches=total[name], **check,
+            ms=r.get(f"{k}_device_ms"), wall_ms=r[f"{k}_wall_ms"],
+            plain_ms=r.get(f"plain_{k}_device_ms"),
+            plain_wall_ms=r[f"plain_{k}_wall_ms"],
+            bound_ms=r[f"bound_{k}_ms"], bound_by="bytes", library_ms=None,
+            shape=f"{r['shape']}, {r['pair_capacity']} pairs, "
+            f"{r['capacity']} slots",
+            by_case=[dict(case=c["case"], shape=c["shape"],
+                          capacity=c["capacity"],
+                          pair_capacity=c["pair_capacity"],
+                          ms=c.get(f"{k}_device_ms"),
+                          wall_ms=c[f"{k}_wall_ms"],
+                          plain_ms=c.get(f"plain_{k}_device_ms"),
+                          bound_ms=c[f"bound_{k}_ms"])
+                     for c in pg_recs[1:] if f"{k}_wall_ms" in c]))
     # B5: one entry per variant, at the script's shape (ms and group_ms
     # in turns); launches from the script's own run (phase_abl16); then
     # the yardsticks, the first port's design (launched by no run)

@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # one-CTA-per-tile designs kept as yardsticks, beside each other)
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_LL = ctypes.c_longlong
 _FWD_ARGS = [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
 _BWD_ARGS = [_VP] * 9 + [_INT, _INT, _INT, _INT, _VP]
 _ABL16_ARGS = [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _VP]
@@ -72,6 +73,12 @@ LIBRARIES = {
     "preprocess": ("preprocess.cu",
                    {"preprocess_fwd": [_VP] * 18,
                     "preprocess_bwd": [_VP] * 21}),
+    "pair_gather": ("pair_gather.cu",
+                    {"pair_gather_fwd": [_VP, _VP, _LL, _LL, _VP, _INT, _INT,
+                                         _INT, _VP],
+                     "segment_reduce_fwd": [_VP, _VP, _VP, _VP, _LL, _LL,
+                                            _VP, _INT, _INT, _INT, _INT,
+                                            _INT, _VP]}),
     "abl16": ("abl16.cu", {f"abl16_{v}{d}": _ABL16_ARGS for v in (
         "full", "noexp", "noscan", "nomxu", "notrans", "minimal", "dyn",
         "prodbody") for d in ("", "_group")}),

@@ -129,6 +129,11 @@ OTHER_SOURCES = {
         "ops/renderer_tiled.py pack_table: plain jnp that XLA fuses; the "
         "port's ops/preprocess_fused.py counts preprocess_fwd.launches and "
         "preprocess_bwd.launches"),
+    "csrc/pair_gather.cu": (
+        "ops/pair_gather.py _fwd_impl (the row gather) and _pg_bwd / "
+        "segment_reduce_pairs (the cumsum segment-reduce): plain jnp; the "
+        "port's ops/pair_gather.py counts pair_gather_fwd.launches and "
+        "segment_reduce_fwd.launches"),
 }
 
 

@@ -4,15 +4,15 @@ pair plan -> packed gather -> 32x32 compositing kernel, or under
 
 ``render`` is differentiable in every Gaussian parameter and the pose
 delta tau: torch autograd supplies the preprocess backward, the gather's
-backward is the cumsum segment-reduce (ops/pair_gather.py) and the
+backward is the per-gaussian segment sum (ops/pair_gather.py) and the
 compositing's is the backward kernel (ops/tile_kernel2.py,
 ops/tile_kernel16.py). ``render_prepared`` is everything after the
 preprocess, from a ``Preprocessed`` and its packed table: the path
 ``slam/render_api.py`` takes with the fused preprocess
 (ops/preprocess_fused.py), which starts from the map. The plan is
 non-differentiable structure, reusable across iterations (``plan=``).
-On CUDA tensors the compositing runs the hand-written kernels; on CPU
-tensors their plain PyTorch versions. ``ops/renderer_ref.py`` is the
+On CUDA tensors the gather and the compositing run the hand-written
+kernels; on CPU tensors their plain PyTorch versions. ``ops/renderer_ref.py`` is the
 oracle it is tested against.
 
 ``bf16`` runs the 32x32 kernels' bfloat16 bodies and ``mxu`` their MXU

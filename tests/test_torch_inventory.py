@@ -282,6 +282,20 @@ def test_registry_sources_exist():
         f"stale: {(used | others) - built}")
 
 
+def test_every_cuda_source_is_a_built_library():
+    """ops/_build.py LIBRARIES builds every CUDA source in csrc/, each one
+    library, so that a source a site or OTHER_SOURCES names is built."""
+    tree = ast.parse((PORT_PKG / "ops" / "_build.py").read_text())
+    libs = next(n.value for n in tree.body if isinstance(n, ast.Assign)
+                and getattr(n.targets[0], "id", "") == "LIBRARIES")
+    sources = [v.elts[0].value for v in libs.values]
+    assert len(sources) == len(set(sources)), sources
+    built = {p.name for p in (PORT_PKG / "csrc").glob("*.cu")}
+    assert set(sources) == built, (
+        f"not built: {built - set(sources)}; "
+        f"stale: {set(sources) - built}")
+
+
 def test_registry_counters_cover_COUNTERS():
     sites, counters = registry()
     named = [n for v in sites.values() for n in v["counters"]]
