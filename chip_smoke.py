@@ -135,67 +135,38 @@ The sub-tile slice: B1', B1 and B2 are the kernels of
 csrc/tile32_fwd_subtile.cu and csrc/tile32_bwd_subtile.cu (one CTA per
 16x16 quarter, a conservative per-warp cull). On every f32 32x32 plan of
 phase 2 they are also held to bit-equal images (B2: the same rows from
-two launches), and the one-CTA-per-tile design they replaced (the
-``*_tile1024`` wrappers) is checked against plain and timed on the same
-plan in turns (old, new, new, old), beside the cells the new kernels
-evaluate (post_cull_cells, tk.subtile_cells) and the tile-walk's. No
-path may launch a ``*_tile1024`` wrapper. Every compositing bound
-charges only the cells the function needs (bound_ms), with PRs 1-5's
-walk bound beside it (walk_bound_ms).
+two launches), beside the cells the new kernels evaluate
+(post_cull_cells, tk.subtile_cells) and the tile-walk's. Every
+compositing bound charges only the cells the function needs (bound_ms),
+with PRs 1-5's walk bound beside it (walk_bound_ms).
 
 The slice after it: B4 is csrc/tile16_bwd_subtile.cu (the same sub-tile
 design on a 16x16 tile, no cluster) and B1'-mxu / B1-mxu are
 csrc/tile32_fwd_subtile_mxu.cu (the sub-tile layout on the tensor-core
 falloff, the block test with a margin for its rounding). Phase 2 holds
 each to its gates as before (B4: columns within BWD_COL_TOL, the same
-rows from two launches; the mxu kernels: MXU_*), times B4 in turns
-against the one-thread-per-pixel design it replaced
-(``composite16_bwd_walk``: walk_ms) on the mapping plan and the mxu
-kernels against the one-CTA-per-tile mxu design
-(``composite32_fwd_mxu_tile1024``: tile1024_ms, also held to the MXU
-gates) at s=4/2/1 and under nt_weight, each beside the cells it
-evaluates. No path may launch a yardstick; each has an entry of its own
-in the kernels line (launches 0).
+rows from two launches; the mxu kernels: MXU_*) on the mapping plan and
+at s=4/2/1 and under nt_weight, each beside the cells it evaluates.
 
 The slice after that: B1'-bf16 / B1-bf16 (C entry composite32_fwd_bf16)
 and B3' / B3 (composite16_fwd) are the f32 sub-tile forward's body
 (csrc/subtile_fwd.cuh), with the bfloat16 falloff and a cull margin for
 its rounding, and on the 16-px plan (csrc/tile16_fwd_subtile.cu). Phase 2
-holds their images and n_touched bit for bit to plain and to the designs
-they replaced, and times each in turns beside that design: the
-one-CTA-per-tile bf16 body (``composite32_fwd_bf16_tile1024``:
-tile1024_ms) at the s=2 tracker plan and the s=1 pad-2 plan, and the
-one-thread-per-pixel B3 (``composite16_fwd_walk``: walk_ms) on the
-tracker's 16-px plans, the fresh plan and the mapping plan, beside the
-cells each evaluates; both yardsticks join the kernels line and the
-paths' forbidden launches.
+holds their images and n_touched bit for bit to plain at the s=2 tracker
+plan and the s=1 pad-2 plan, and on the tracker's 16-px plans, the fresh
+plan and the mapping plan, beside the cells each evaluates.
 
 The slice after those: B2-bf16 and B2-mxu (C entries composite32_bwd_bf16
 and composite32_bwd_mxu) are B2's sub-tile body (csrc/tile32_bwd_subtile.cu)
 with the bfloat16 falloff and its cull margin, and with the tensor-core
 falloff, the mxu margin and per-warp survivor power blocks. Phase 2 holds
-each, on the plans of its phase and under both cotangents, to its gates,
-to the same rows from two launches, and times it in turns beside the
-one-CTA-per-tile body it replaced (``composite32_bwd_bf16_tile1024``,
-``composite32_bwd_mxu_tile1024``: tile1024_ms, held to the same gates),
-beside the cells it evaluates, counted from the backward walk's own stops
-(tk.plain_bwd_walk(done_at=True), equal to the forward's but under mxu);
-B2-bf16-mxu got its cells counted too. Both yardsticks join the kernels
-line and the paths' forbidden launches. exact-pyramid-bf16 and
-exact-pyramid-mxu run once more, uncounted, with the replaced body in
-the sub-tile backward's place (replaced_backward), and report both mean
-errors: the all-exact pyramid carries the rows' sum order into the
-poses.
-
-The slice after those: B2-bf16-mxu (C entry composite32_bwd_bf16_mxu) is
-the same sub-tile body with the mxu falloff and the bfloat16 products,
-held to the same gates and timed in turns beside the one-CTA-per-tile
-body it replaced (``composite32_bwd_bf16_mxu_tile1024``, a yardstick like
-the others; exact-pyramid-bf16-mxu also runs once more on it). B5 runs
-one CTA per 16x16 subtile; its first design (one CTA per 32x32 group,
-the ``abl16_<variant>_group`` entries, ``design="group"``) is a
-yardstick, held to the same 1e-5 gate and to the new design's output bit
-for bit, and timed in turns beside it (group_ms, vs_group).
+each, on the plans of its phase and under both cotangents, to its gates
+and to the same rows from two launches, beside the cells it evaluates,
+counted from the backward walk's own stops (tk.plain_bwd_walk(done_at=
+True), equal to the forward's but under mxu). B2-bf16-mxu (C entry
+composite32_bwd_bf16_mxu) is the same sub-tile body with the mxu falloff
+and the bfloat16 products, held to the same gates. B5 runs one CTA per
+16x16 subtile, held to plain at 1e-5.
 
 The last slice adds the port's bench and entry points and the multi-rank
 paths, each with its launch counts (``ops/launches.py``; the ranks'
@@ -237,9 +208,9 @@ integer flips within PREP_FLIP_FRAC of the rows, dL/dtau within
 PREP_TAU_REL and the same from two launches. At the main path's capacity,
 2^16 and 2^18 it times each call (wall among PREP_CALLS issued back to
 back) beside the eager version's, and the deferred profiled pass reads
-their device times. Both counters are in WRAPPERS: the main path must
-launch the forward, the exact-gradient and mapping paths both; the
-kernels line has a row for each (device ms, wall, plain, bound of
+their device times. Both counters are in ops/launches.py COUNTERS: the
+main path must launch the forward, the exact-gradient and mapping paths
+both; the kernels line has a row for each (device ms, wall, plain, bound of
 PREP_FWD_BYTES / PREP_BWD_BYTES a slot, by capacity).
 
 P2, the pair gather (csrc/pair_gather.cu, ops/pair_gather.py), which every
@@ -252,9 +223,9 @@ pair_gather_plain, segment_reduce_fwd within PG_BWD_REL of the float64
 segment sum (the plain chain's own gap reported beside it), exact on
 integer touch counts and the same from two launches; it times each call
 but the levels' and its plain version, and the deferred profiled pass
-reads their device times. Both counters are in WRAPPERS: the main path
-and the mapping paths must launch both; the kernels line has a row for
-each (the main path's plan, the others by case).
+reads their device times. Both counters are in ops/launches.py COUNTERS:
+the main path and the mapping paths must launch both; the kernels line
+has a row for each (the main path's plan, the others by case).
 A failed gate is printed and the run
 goes on; it exits non-zero before the result lines if any gate failed.
 Without CUDA it exits non-zero before printing any result.
@@ -602,7 +573,8 @@ MXU_RENDER_FLIP_TOL = {"color": 8e-3, "depth": 5e-2, "opacity": 8e-3}
 # the power block, 3 x 2 x 8 FLOP a needed (pair, pixel) cell (a walked
 # one under walk_bound_ms) at the dense TF32 peak (495 TFLOP/s, H100 SXM
 # data sheet), charged beside the CUDA cores' share at the FP32 peak.
-# CUDA-core operations, counted from csrc/tile_kernel2_fwd.cu under kMXU:
+# CUDA-core operations, counted from the first mxu forward's body (one
+# CTA per 32x32 tile, PR 5):
 # a walked cell the f32 kernel's 25 less the deltas (2) and the quadratic
 # form (9), plus the clamp 1: 15;
 # a cell that passes the skip tests while its pixel is not done (the only
@@ -748,11 +720,9 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     """A forward kernel against its plain version on one plan: B1/B1'
     (32x32), under ``bf16`` or ``mxu`` their bfloat16 or MXU bodies (and
     the f32 kernel's time on the same plan beside them), or under
-    ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile grid). Each
-    sub-tile kernel is timed in turns beside the design it replaced (the
-    one-CTA-per-tile f32, bf16 and mxu bodies: tile1024_ms; the
-    one-thread-per-pixel B3: walk_ms), with the cells it evaluates. Plain
-    time unless not ``time_plain``."""
+    ``tile16`` B3/B3' (n_tx x n_ty is then the 16-px tile grid), with the
+    cells the sub-tile kernel evaluates. Plain time unless not
+    ``time_plain``."""
     tile = 16 if tile16 else 32
 
     def kernel(bf16=bf16, mxu=mxu):
@@ -766,23 +736,14 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         return tk.plain_walk(feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                              nt_weight, tile=tile, bf16=bf16, mxu=mxu)
 
-    # the sub-tile kernels beside the designs they replaced: the f32,
-    # bf16 and mxu 32x32 forwards beside the one-CTA-per-tile bodies
-    # (tile1024), B3/B3' beside the one-thread-per-pixel walk (walk); the
-    # f32 32x32 kernel's images are held bit for bit to plain, the bf16
-    # and 16-px kernels' images and n_touched bit for bit to plain and to
-    # the design they replaced
+    # the f32 32x32 kernel's images are held bit for bit to plain, the
+    # bf16 and 16-px kernels' images and n_touched bit for bit to plain
     subtile = not (tile16 or bf16 or mxu)
     exact = not mxu and (bf16 or tile16)
-    yard = not (bf16 and mxu)
-    yk = "walk" if tile16 else "tile1024"
     torch.cuda.synchronize()
-    if yard:
-        ref, walked, passed, stop_at = tk.plain_walk(
-            feat, ranges, n_tx, n_ty, w, h, with_ntouch, nt_weight,
-            tile=tile, bf16=bf16, mxu=mxu, done_at=True)
-    else:
-        (ref, walked, passed) = plain()
+    ref, walked, passed, stop_at = tk.plain_walk(
+        feat, ranges, n_tx, n_ty, w, h, with_ntouch, nt_weight, tile=tile,
+        bf16=bf16, mxu=mxu, done_at=True)
     got = kernel()
     torch.cuda.synchronize()
     errs = {
@@ -802,48 +763,9 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
     p9999 = {k: float(torch.quantile(d, 0.9999)) for k, d in diffs.items()}
     over_1e3 = int((diff > 1e-3).sum())
     over_tol = sum(int((diffs[k] > MXU_IMG_TOL[k]).sum()) for k in diffs)
-    extra = {}
-    if yard:
-        if tile16:
-            def old():
-                return tk16.composite16_fwd_walk(feat, ranges, n_tx // 2,
-                                                 n_ty // 2, w, h,
-                                                 with_ntouch, nt_weight)
-        else:
-            yardstick = (tk.composite32_fwd_mxu_tile1024 if mxu
-                         else tk.composite32_fwd_bf16_tile1024 if bf16
-                         else tk.composite32_fwd_tile1024)
-
-            def old():
-                return yardstick(feat, ranges, n_tx, n_ty, w, h,
-                                 with_ntouch, nt_weight)
-        old_out = old()
-        extra[f"{yk}_max_abs_err"] = max(
-            float((a - b).abs().max()) for a, b in zip(old_out[:3], ref[:3]))
-        extra[f"{yk}_nt_mismatch"] = int(
-            (old_out.n_touched_pairs != ref.n_touched_pairs).sum())
-        extra[f"equals_{yk}"] = all(
-            bool(torch.equal(a, b)) for a, b in zip(got, old_out))
-        if mxu:
-            # the two mxu designs apart: the tensor cores may sum a
-            # pixel's products otherwise in another fragment position
-            apart = torch.cat([(a - b).abs().flatten()
-                               for a, b in zip(got, old_out)])
-            extra.update(
-                vs_tile1024_max_abs_diff=float(apart.max()),
-                vs_tile1024_values_differing=int((apart > 0).sum()),
-                tile1024_gate=mxu_gate_failure(old_out, ref, live))
-        # in turns: the earlier design, the new kernel twice, the earlier
-        # one again
-        turns = [time_ms(f) for f in (old, kernel, kernel, old)]
-        ms = (turns[1] + turns[2]) / 2
-        extra.update({f"{yk}_ms": (turns[0] + turns[3]) / 2,
-                      "turns_ms": turns})
-        kept, rected = tk.subtile_cells(feat, ranges, n_tx, n_ty, stop_at,
-                                        tile=tile, mxu=mxu, bf16=bf16)
-        extra.update(post_cull_cells=kept, rect_cells=rected)
-    else:
-        ms = time_ms(kernel)
+    kept, rected = tk.subtile_cells(feat, ranges, n_tx, n_ty, stop_at,
+                                    tile=tile, mxu=mxu, bf16=bf16)
+    ms = time_ms(kernel)
     plain_ms = (time_ms(plain, reps=3 if bf16 or mxu else 5, warm=1)
                 if time_plain else None)
     cells = walked_pairs * tile * tile
@@ -875,7 +797,8 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
                values_over_mxu_tol=over_tol, nt_mismatch=nt_bad, ms=ms,
                plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes > t_ops else "operations",
-               walk_bound_ms=max(walk_t_bytes, walk_t_ops), **extra)
+               walk_bound_ms=max(walk_t_bytes, walk_t_ops),
+               post_cull_cells=kept, rect_cells=rected)
     if mxu:
         rec["bound_tensor_core_ms"] = passed_cells * TC_FLOP_PER_CELL \
             / TF32_FLOP_PER_S * 1e3
@@ -890,9 +813,6 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         gate = mxu_gate_failure(got, ref, live)
         if gate:
             fail(f"{name} (mxu): {gate}")
-        if yard and extra["tile1024_gate"]:
-            fail(f"{name} (mxu): the one-CTA-per-tile design (tile1024): "
-                 f"{extra['tile1024_gate']}")
     else:
         if max(errs.values()) > IMG_TOL:
             fail(f"{name}: kernel differs from plain by {errs}")
@@ -905,23 +825,12 @@ def kernel_case(name, feat, ranges, n_tx, n_ty, w, h, with_ntouch,
         if max(errs.values()) > 0.0:
             fail(f"{name}: the sub-tile kernel's images are not bit-equal "
                  f"to plain ({errs})")
-        if extra["tile1024_max_abs_err"] > IMG_TOL \
-                or extra["tile1024_nt_mismatch"] > NT_MISMATCH_FRAC * live:
-            fail(f"{name}: PR 5's design (tile1024) differs from plain by "
-                 f"{extra['tile1024_max_abs_err']:.3e}, "
-                 f"{extra['tile1024_nt_mismatch']} n_touched mismatches")
     if exact:
         # the bf16 and 16-px sub-tile kernels: only skipped cells are
-        # dropped, so images and n_touched are plain's and the replaced
-        # design's, bit for bit
+        # dropped, so images and n_touched are plain's bit for bit
         if max(errs.values()) > 0.0 or nt_bad:
             fail(f"{name}: the sub-tile kernel is not bit-equal to plain "
                  f"({errs}, {nt_bad} n_touched mismatches)")
-        if not extra[f"equals_{yk}"]:
-            fail(f"{name}: the sub-tile kernel's outputs differ from the "
-                 f"design it replaced ({yk}: {extra[f'{yk}_max_abs_err']:.3e}"
-                 f" from plain, {extra[f'{yk}_nt_mismatch']} n_touched "
-                 "mismatches)")
     if bf16 and rec["differs_from_f32"] <= IMG_TOL:
         fail(f"{name}: the bf16 kernel's image equals the f32 kernel's")
     return rec
@@ -1097,18 +1006,15 @@ def mapping_cotangent(planes, target):
 def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             target, seed, time_plain=True, tile16=False, opa_growth=1.0,
             cot_fn=loss_cotangent, bf16=False, mxu=False):
-    """The backward kernel against its plain version on one plan (B2,
-    with the one-CTA-per-tile design timed in turns beside it, a second
-    launch held bit for bit to the first and the cells it evaluates; under
-    ``bf16``, ``mxu`` or both B2-bf16, B2-mxu or B2-bf16-mxu likewise,
-    beside the one-CTA-per-tile body of the same falloff, on the matching
-    forward's planes with the f32 kernel's time beside it; under
-    ``tile16`` B4 on a 16-px plan, beside the one-thread-per-pixel design,
-    composite16_bwd_walk, with a second launch and its cells) under
-    ``cot_fn``'s loss cotangent and a seeded one: per-column error,
-    dL/dtau through both routes (the yardstick's too), and kernel / bound
-    times, and the plain version's unless not ``time_plain``. The cells
-    follow the backward walk's own stops (plain_bwd_walk(done_at=True)),
+    """The backward kernel against its plain version on one plan (B2, with
+    a second launch held bit for bit to the first and the cells it
+    evaluates; under ``bf16``, ``mxu`` or both B2-bf16, B2-mxu or
+    B2-bf16-mxu likewise, on the matching forward's planes with the f32
+    kernel's time beside it; under ``tile16`` B4 on a 16-px plan, with a
+    second launch and its cells) under ``cot_fn``'s loss cotangent and a
+    seeded one: per-column error, dL/dtau through both routes, and kernel
+    / bound times, and the plain version's unless not ``time_plain``. The
+    cells follow the backward walk's own stops (plain_bwd_walk(done_at=True)),
     which must equal the forward walk's but under mxu (its linear T
     against the forward's log space: the pixels whose stops differ are
     reported)."""
@@ -1124,17 +1030,7 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     if tile16:
         def kernel(*a):
             return tk16.composite16_bwd(*a[:8], n_tx // 2, n_ty // 2, w, h)
-
-        def yardstick(*a):
-            return tk16.composite16_bwd_walk(*a[:8], n_tx // 2, n_ty // 2, w,
-                                             h)
     else:
-        yardstick = {(False, False): tk.composite32_bwd_tile1024,
-                     (True, False): tk.composite32_bwd_bf16_tile1024,
-                     (False, True): tk.composite32_bwd_mxu_tile1024,
-                     (True, True): tk.composite32_bwd_bf16_mxu_tile1024}[
-                         (bf16, mxu)]
-
         def kernel(*a, bf16=bf16, mxu=mxu):
             return tk.composite32_bwd(*a, bf16=bf16, mxu=mxu)
     with torch.no_grad():
@@ -1147,10 +1043,6 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
     seeded = torch.randn(5, h, w, generator=gen, device=dev)
     cots = {"loss": cot_fn(planes, target),
             "seeded": (seeded[0:3], seeded[3], seeded[4])}
-    # the sub-tile backwards, B2, B2-bf16, B2-mxu and B2-bf16-mxu beside
-    # the one-CTA-per-tile bodies of their falloff (tile1024), B4 beside the
-    # one-thread-per-pixel design (walk)
-    yk = "walk" if tile16 else "tile1024"
     cull = {}
     live = int((ranges[:, 1] - ranges[:, 0]).sum())
     recs = []
@@ -1162,7 +1054,6 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
             ref, walked, included, stop_at = tk.plain_bwd_walk(
                 *args, tile=tile, bf16=bf16, mxu=mxu, done_at=True)
             again = kernel(*args)
-            old_rows = yardstick(*args)
         torch.cuda.synchronize()
         if not cull:
             # the cells the sub-tile body evaluates, from the backward
@@ -1181,11 +1072,6 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         # warps (and B2's cluster the quarters) are summed in a fixed
         # order: a second launch gives the same rows bit for bit
         extra["repeat_bit_equal"] = bool(torch.equal(got, again))
-        extra[f"{yk}_max_abs_err"] = float((old_rows - ref).abs().max())
-        extra[f"{yk}_max_col_rel_err"] = max(
-            float((old_rows[:, c] - ref[:, c]).abs().max())
-            / max(float(ref[:, c].abs().max()), 1e-30)
-            for c in range(tk.N_ROWS))
         col_rel = []
         for c in range(tk.N_ROWS):
             scale = float(ref[:, c].abs().max())
@@ -1200,22 +1086,8 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
         (dtau_p,) = torch.autograd.grad(feat, tau, ref, retain_graph=True)
         dtau_rel = float((dtau_k - dtau_p).abs().max()
                          / dtau_p.abs().max())
-        (dtau_y,) = torch.autograd.grad(feat, tau, old_rows,
-                                        retain_graph=True)
-        extra[f"{yk}_dtau_rel_err"] = float(
-            (dtau_y - dtau_p).abs().max() / dtau_p.abs().max())
         with torch.no_grad():
-            def old():
-                return yardstick(*args)
-
-            def new():
-                return kernel(*args)
-            # in turns: the earlier design, the new kernel twice, the
-            # earlier one again
-            turns = [time_ms(f) for f in (old, new, new, old)]
-            ms = (turns[1] + turns[2]) / 2
-            extra.update({f"{yk}_ms": (turns[0] + turns[3]) / 2,
-                          "turns_ms": turns})
+            ms = time_ms(lambda: kernel(*args))
             plain_ms = (time_ms(lambda: tk.plain_bwd_walk(
                 *args, tile=tile, bf16=bf16, mxu=mxu),
                 reps=3 if bf16 or mxu else 7, warm=1)
@@ -1278,12 +1150,6 @@ def b2_case(name, dev, prep_fn, w, h, cap, radius_scale, radius_pad,
                  f"{dtau_rel:.3e} relative (limit {dtau_tol})")
         if not extra["repeat_bit_equal"]:
             fail(f"{label} {name}/{kind}: two launches gave different rows")
-        if (extra[f"{yk}_max_col_rel_err"] > col_tol
-                or extra[f"{yk}_dtau_rel_err"] > dtau_tol):
-            fail(f"{label} {name}/{kind}: the earlier design ({yk}) differs "
-                 f"from plain by {extra[f'{yk}_max_col_rel_err']:.3e} of "
-                 f"a column's max (limit {col_tol}), dL/dtau by "
-                 f"{extra[f'{yk}_dtau_rel_err']:.3e} (limit {dtau_tol})")
         if not mxu and extra["stops_differing_from_forward"]:
             fail(f"{label} {name}: the backward walk's stops differ from "
                  f"the forward walk's at "
@@ -1491,7 +1357,7 @@ def render_bf16_path(dev, gm, cam, poses, gts):
     render against the f32 ground truth rendered at the same pose and the
     n_touched mismatches; fails on non-finite output, overflow, or a bf16
     render equal to the f32 one."""
-    reset_counts()
+    path_launches.reset()
     bg = torch.zeros(3, device=dev)
     psnrs, nt_diff, diff, finite, ovf = [], [], 0.0, True, 0
     for Tp, gt in zip(poses, gts):
@@ -1653,7 +1519,7 @@ def render_mxu_path(dev, gm, cam, poses):
     render at the same pose at MXU_RENDER_TOL (color, depth, opacity);
     n_touched mismatches are reported. Fails on non-finite output,
     overflow or a gate."""
-    reset_counts()
+    path_launches.reset()
     bg = torch.zeros(3, device=dev)
     diffs = {k: [] for k in MXU_RENDER_TOL}
     nt_diff, finite, ovf = [], True, 0
@@ -1695,50 +1561,34 @@ def render_mxu_path(dev, gm, cam, poses):
 
 
 def phase_abl16(dev):
-    """B5: each variant of csrc/abl16.cu (one CTA per 16x16 subtile) and
-    its yardstick, the first port's design (one CTA per 32x32 group,
-    ``design="group"``), against the plain version at a small shape (4 x 3
-    groups) on the script's plan and on a plan whose rect16 columns admit
-    every cell (1e-5 relative; the two designs bit for bit), then the
-    script's own run (scripts/abl16.py's main: 1216x704, NC=2) with the
-    launch counts from 0 (the launches line), then, uncounted, each
-    variant in turns against its yardstick (group, subtile, subtile,
-    group): per variant ms and group_ms (the means of each design's
-    turns), vs_group, us/chunk, the bound and its share of each time, the
-    errors at the script's shape and the plain version's time there."""
+    """B5: each variant of csrc/abl16.cu (one CTA per 16x16 subtile)
+    against the plain version at a small shape (4 x 3 groups) on the
+    script's plan and on a plan whose rect16 columns admit every cell
+    (1e-5 relative), then the script's own run (scripts/abl16.py's main:
+    1216x704, NC=2) with the launch counts from 0 (the launches line): per
+    variant ms, us/chunk, the bound and its share of the time, the error
+    at the script's shape and the plain version's time there."""
     recs = {}
 
     def rel_err(a, b):
         return float(((a - b).abs() / b.abs()).max())
 
     for v in abl16.VARIANTS:
-        rel = err = group_rel = group_err = 0.0
-        same = True
+        rel = err = 0.0
         for make, nc in ((abl16.make_inputs, 1),
                          (abl16.make_admitting_inputs, 2)):
             feat, ranges = make(4, 3, nc, device=dev)
             got = abl16.run(feat, ranges, 4, 3, 128, 96, nc, v)
-            old = abl16.run(feat, ranges, 4, 3, 128, 96, nc, v,
-                            design="group")
             ref = abl16.run_plain(feat, ranges, 4, 3, 128, 96, nc, v)
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(got).all() & torch.isfinite(old)
-                        .all()):
+            if not bool(torch.isfinite(got).all()):
                 fail(f"abl16_{v}: non-finite output")
             rel = max(rel, rel_err(got, ref))
-            group_rel = max(group_rel, rel_err(old, ref))
             err = max(err, float((got - ref).abs().max()))
-            group_err = max(group_err, float((old - ref).abs().max()))
-            same = same and bool(torch.equal(got, old))
-        recs[v] = dict(max_rel_err=rel, max_abs_err=err,
-                       group_max_rel_err=group_rel,
-                       group_max_abs_err=group_err, group_bit_equal=same)
-        if not rel <= 1e-5 or not group_rel <= 1e-5:
+        recs[v] = dict(max_rel_err=rel, max_abs_err=err)
+        if not rel <= 1e-5:
             fail(f"abl16_{v}: kernel differs from plain by {rel:.3e} "
-                 f"relative, its group design by {group_rel:.3e} (limit "
-                 "1e-5)")
-        if not same:
-            fail(f"abl16_{v}: the subtile and group designs differ")
+                 "relative (limit 1e-5)")
     sh = abl16.SHAPE
     n_gx, n_gy, w, h = sh["n_gx"], sh["n_gy"], sh["W"], sh["H"]
     nc = 2
@@ -1746,55 +1596,31 @@ def phase_abl16(dev):
     chunks = 4 * n_gx * n_gy * nc
     # the script's run (its main), launch counts from 0
     abl16.run.launches = {v: 0 for v in abl16.VARIANTS}
-    abl16.run.launches_group = {v: 0 for v in abl16.VARIANTS}
     for v in abl16.VARIANTS:
-        recs[v]["script_ms"] = time_ms(lambda: abl16.run(
+        recs[v]["ms"] = time_ms(lambda: abl16.run(
             feat, ranges, n_gx, n_gy, w, h, nc, v))
     launches = dict(abl16.run.launches)
-    group_launches = dict(abl16.run.launches_group)
     for v in abl16.VARIANTS:
-        t = abl16.time_turns(feat, ranges, n_gx, n_gy, w, h, nc, v)
         bnd, by = abl16.bound_ms(ranges, n_gx, n_gy, nc, v)
-        recs[v].update(
-            ms=t["ms"], group_ms=t["group_ms"], turns_ms=t["turns_ms"],
-            vs_group=t["ms"] / t["group_ms"],
-            us_per_chunk=t["ms"] * 1e3 / chunks,
-            group_us_per_chunk=t["group_ms"] * 1e3 / chunks, bound_ms=bnd,
-            bound_by=by, bound_pct=100.0 * bnd / t["ms"],
-            group_bound_pct=100.0 * bnd / t["group_ms"])
+        ms = recs[v]["ms"]
+        recs[v].update(us_per_chunk=ms * 1e3 / chunks, bound_ms=bnd,
+                       bound_by=by, bound_pct=100.0 * bnd / ms)
         with torch.no_grad():
             got = abl16.run(feat, ranges, n_gx, n_gy, w, h, nc, v)
-            old = abl16.run(feat, ranges, n_gx, n_gy, w, h, nc, v,
-                            design="group")
             ref = abl16.run_plain(feat, ranges, n_gx, n_gy, w, h, nc, v)
             recs[v]["max_rel_err_script_shape"] = rel_err(got, ref)
-            recs[v]["group_max_rel_err_script_shape"] = rel_err(old, ref)
-            recs[v]["group_bit_equal_script_shape"] = bool(
-                torch.equal(got, old))
         recs[v]["plain_ms"] = time_ms(lambda: abl16.run_plain(
             feat, ranges, n_gx, n_gy, w, h, nc, v), reps=1, warm=1)
         recs[v]["launches"] = launches[v]
-        recs[v]["group_launches"] = group_launches[v]
-        if max(recs[v]["max_rel_err_script_shape"],
-               recs[v]["group_max_rel_err_script_shape"]) > 1e-5:
+        if recs[v]["max_rel_err_script_shape"] > 1e-5:
             fail(f"abl16_{v}: at the script's shape the kernel differs from "
-                 f"plain by {recs[v]['max_rel_err_script_shape']:.3e}, its "
-                 "group design by "
-                 f"{recs[v]['group_max_rel_err_script_shape']:.3e}")
-        if not recs[v]["group_bit_equal_script_shape"]:
-            fail(f"abl16_{v}: at the script's shape the subtile and group "
-                 "designs differ")
-        if launches[v] == 0 or group_launches[v]:
-            fail(f"abl16_{v}: the script's run launched the kernel "
-                 f"{launches[v]} times and the group design "
-                 f"{group_launches[v]} times")
+                 f"plain by {recs[v]['max_rel_err_script_shape']:.3e}")
+        if launches[v] == 0:
+            fail(f"abl16_{v}: the script's run never launched the kernel")
         r = recs[v]
         print(f"abl16 {v:9s} {r['ms']:8.3f} ms {r['us_per_chunk']:7.3f} "
-              f"us/chunk  group {r['group_ms']:8.3f} ms "
-              f"{r['group_us_per_chunk']:7.3f} us/chunk  vs_group "
-              f"{r['vs_group']:.3f}  bound {r['bound_ms']:.3f} ms "
-              f"({r['bound_by']}; {r['bound_pct']:.1f}% / "
-              f"{r['group_bound_pct']:.1f}%)  plain {r['plain_ms']:.1f} ms",
+              f"us/chunk  bound {r['bound_ms']:.3f} ms ({r['bound_by']}; "
+              f"{r['bound_pct']:.1f}%)  plain {r['plain_ms']:.1f} ms",
               flush=True)
     print("abl16 " + json.dumps(dict(shape=f"{w}x{h}", chunks=chunks,
                                      variants=recs, card=card_line())),
@@ -2335,67 +2161,22 @@ def count_syncs(fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-# kernel name -> (wrapper, its launch counter): the paths' kernels
-# (ops/launches.py: the bf16 and mxu variants count in their wrapper's
-# ``launches_bf16``, ``launches_mxu`` and, the backward under both,
-# ``launches_bf16_mxu``), the fused preprocess (P1) and the pair gather
-# (P2), outside COUNTERS as they replace no Pallas site, then the
-# yardsticks
-WRAPPERS = dict(
-    path_launches.COUNTERS,
-    preprocess_fwd=(pf.preprocess_fwd, "launches"),
-    preprocess_bwd=(pf.preprocess_bwd, "launches"),
-    pair_gather_fwd=(pg.pair_gather_fwd, "launches"),
-    segment_reduce_fwd=(pg.segment_reduce_fwd, "launches"),
-    composite32_fwd_tile1024=(tk.composite32_fwd_tile1024, "launches"),
-    composite32_bwd_tile1024=(tk.composite32_bwd_tile1024, "launches"),
-    composite32_fwd_mxu_tile1024=(tk.composite32_fwd_mxu_tile1024,
-                                  "launches"),
-    composite16_bwd_walk=(tk16.composite16_bwd_walk, "launches"),
-    composite32_fwd_bf16_tile1024=(tk.composite32_fwd_bf16_tile1024,
-                                   "launches"),
-    composite16_fwd_walk=(tk16.composite16_fwd_walk, "launches"),
-    composite32_bwd_bf16_tile1024=(tk.composite32_bwd_bf16_tile1024,
-                                   "launches"),
-    composite32_bwd_mxu_tile1024=(tk.composite32_bwd_mxu_tile1024,
-                                  "launches"),
-    composite32_bwd_bf16_mxu_tile1024=(tk.composite32_bwd_bf16_mxu_tile1024,
-                                       "launches"))
 KERNELS32 = ("composite32_fwd", "composite32_fwd_ntouch", "composite32_bwd")
 KERNELS16 = ("composite16_fwd", "composite16_fwd_ntouch", "composite16_bwd")
 KERNELS_BF16 = ("composite32_fwd_bf16", "composite32_fwd_ntouch_bf16",
                 "composite32_bwd_bf16")
-# the designs the sub-tile kernels replaced (the one-CTA-per-tile f32,
-# mxu and bf16 32x32 bodies, forward and backward, and the backward with
-# both, the one-thread-per-pixel B4 and B3), timed beside them in phase 2
-# only: no path may launch one
-YARDSTICKS = ("composite32_fwd_tile1024", "composite32_bwd_tile1024",
-              "composite32_fwd_mxu_tile1024", "composite16_bwd_walk",
-              "composite32_fwd_bf16_tile1024", "composite16_fwd_walk",
-              "composite32_bwd_bf16_tile1024", "composite32_bwd_mxu_tile1024",
-              "composite32_bwd_bf16_mxu_tile1024")
-
-
-def count_of(name):
-    fn, attr = WRAPPERS[name]
-    return getattr(fn, attr)
-
-
-def reset_counts():
-    for fn, attr in WRAPPERS.values():
-        setattr(fn, attr, 0)
-
 
 def read_counts(path, required, forbidden=()):
-    """The launch counts since reset_counts(); fails unless every kernel
-    in ``required`` was launched on ``path`` and none in ``forbidden`` or
-    YARDSTICKS."""
-    counts = {name: count_of(name) for name in WRAPPERS}
+    """The launch counts since path_launches.reset() (ops/launches.py
+    COUNTERS: every hand-written kernel a path launches); fails unless
+    every kernel in ``required`` was launched on ``path`` and none in
+    ``forbidden``."""
+    counts = path_launches.counts()
     print(f"{path} launches: {json.dumps(counts)}", flush=True)
     for name in required:
         if counts[name] == 0:
             fail(f"kernel {name} was never launched on the path {path}")
-    for name in tuple(forbidden) + YARDSTICKS:
+    for name in forbidden:
         if counts[name]:
             fail(f"kernel {name} was launched on the path {path}")
     return counts
@@ -2406,35 +2187,11 @@ class uncounted:
     they were."""
 
     def __enter__(self):
-        self.saved = {n: count_of(n) for n in WRAPPERS}
+        self.saved = path_launches.counts()
 
     def __exit__(self, *exc):
-        for n, (fn, attr) in WRAPPERS.items():
+        for n, (fn, attr) in path_launches.COUNTERS.items():
             setattr(fn, attr, self.saved[n])
-
-
-class replaced_backward:
-    """Inside the block the 32x32 backward under bf16, mxu or both runs
-    the one-CTA-per-tile body the sub-tile kernel replaced
-    (composite32_bwd_bf16_tile1024, composite32_bwd_mxu_tile1024,
-    composite32_bwd_bf16_mxu_tile1024), as the renderer looks
-    composite32_bwd up at each call."""
-
-    def __enter__(self):
-        self.bwd = bwd = tk.composite32_bwd
-
-        @functools.wraps(bwd)  # its counters too, which the wrapper bumps
-        def old_design(*a, bf16=False, mxu=False):
-            if bf16 or mxu:
-                return {(True, False): tk.composite32_bwd_bf16_tile1024,
-                        (False, True): tk.composite32_bwd_mxu_tile1024,
-                        (True, True): tk.composite32_bwd_bf16_mxu_tile1024}[
-                            (bf16, mxu)](*a)
-            return bwd(*a)
-        tk.composite32_bwd = old_design
-
-    def __exit__(self, *exc):
-        tk.composite32_bwd = self.bwd
 
 
 def check_path(name, rec, max_err_m=1e-3):
@@ -2665,7 +2422,7 @@ def run_slam(name, dev, dataset, out_root, training, required):
         return inner_refine(*args, **kw)
     slam.backend.color_refinement = refine_hook
     tracking.track_frame_pyr = track_hook
-    reset_counts()
+    path_launches.reset()
     if viewer:
         probe, probed = probe_viewer(slam)
     try:
@@ -3103,9 +2860,9 @@ def profile_mapping(name, be):
 def phase_bench(r05, dev):
     """``python -m gs_slam_analytica_jacobian_tpu_torch.bench`` at its
     defaults (no BENCH_* set) in a subprocess: its JSON line, its launch
-    counts (WRAPPERS' names), and its ms/frame beside this call's reading
-    of the schedule it adapts to (bench-r05-schedule, ``r05``) and beside
-    bench.run_bench in this process (uncounted)."""
+    counts (ops/launches.py COUNTERS' names), and its ms/frame beside this
+    call's reading of the schedule it adapts to (bench-r05-schedule,
+    ``r05``) and beside bench.run_bench in this process (uncounted)."""
     env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
     t0 = time.perf_counter()
     res = subprocess.run(
@@ -3116,12 +2873,13 @@ def phase_bench(r05, dev):
     if res.returncode != 0 or not lines:
         fail(f"bench: exit {res.returncode}, no JSON line; stderr tail: "
              f"{res.stderr[-2000:]}")
-        return None, {n: 0 for n in WRAPPERS}
+        return None, {n: 0 for n in path_launches.COUNTERS}
     line = lines[-1]
     print(f"bench {line}", flush=True)
     rec = json.loads(line)
     d = rec["detail"]
-    counts = {n: d["kernel_launches"].get(n, 0) for n in WRAPPERS}
+    counts = {n: d["kernel_launches"].get(n, 0)
+              for n in path_launches.COUNTERS}
     print(f"bench launches: {json.dumps(counts)}", flush=True)
     with uncounted():
         here = bench.run_bench(device=dev)["detail"]
@@ -3157,7 +2915,7 @@ def phase_entry(dev, case):
     record: the same scene's plan (its overflow, gated here) and B1 held
     against the plain version on it."""
     fn, args = graft_entry.entry(device=dev)
-    reset_counts()
+    path_launches.reset()
     color, depth, opacity = fn(*args)
     torch.cuda.synchronize()
     counts = read_counts("entry", ("composite32_fwd_ntouch",))
@@ -3187,13 +2945,13 @@ def phase_multichip(dev):
         recs = graft_entry.dryrun_multichip(MULTICHIP_RANKS, device=dev)
     except Exception as e:
         fail(f"multichip: {type(e).__name__}: {e}")
-        return {n: 0 for n in WRAPPERS}
+        return {n: 0 for n in path_launches.COUNTERS}
     wall = time.perf_counter() - t0
-    total = {n: 0 for n in WRAPPERS}
+    total = {n: 0 for n in path_launches.COUNTERS}
     for r in recs:
         per = {n: sum(r[p]["launches"].get(n, 0)
                       for p in ("step", "integrated", "slab"))
-               for n in WRAPPERS}
+               for n in path_launches.COUNTERS}
         print(f"multichip rank {r['rank']} launches: " + json.dumps(
             {p: {n: c for n, c in r[p]["launches"].items() if c}
              for p in ("step", "integrated", "slab")}), flush=True)
@@ -3276,17 +3034,17 @@ def mesh2_rank(device="cuda"):
         return assert_finite(be, tag)
 
     BackEnd._assert_finite = counted
-    reset_counts()
+    path_launches.reset()
     try:
         mapping_rec, _ = run_mapping("mapping-mesh2", dev, cam, kf_gts,
                                      kf_poses, False, mesh=MESH_RANKS)
     finally:
         BackEnd._assert_finite = assert_finite
-    mapping_rec["launches"] = {n: count_of(n) for n in WRAPPERS}
+    mapping_rec["launches"] = path_launches.counts()
     mapping_rec["nan_checks"] = checks[0]
     mesh = sharding.make_mesh(MESH_RANKS, device=dev)
     bg = torch.zeros(3, device=dev)
-    reset_counts()
+    path_launches.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     color, depth, opac = slab.slab_render(mesh, gm, cam, bg, tiled=True,
@@ -3300,7 +3058,7 @@ def mesh2_rank(device="cuda"):
         opacity=opac.detach().cpu().numpy(), loss=float(loss.detach()),
         grads={f: g.cpu().numpy() for f, g in grads.items()},
         wall_s=time.perf_counter() - t0,
-        launches={n: count_of(n) for n in WRAPPERS})
+        launches=path_launches.counts())
     return dict(rank=mesh.rank, mapping=mapping_rec, slab=slab_rec,
                 failures=list(FAILURES))
 
@@ -3337,7 +3095,7 @@ def phase_mesh2(dev, gm, cam, kf_gts, one, launches):
     for path in ("mapping", "slab"):
         name = f"{path}-mesh2"
         launches[name] = {n: sum(r[path]["launches"][n] for r in ranks)
-                          for n in WRAPPERS}
+                          for n in path_launches.COUNTERS}
         print(f"{name} launches by rank: " + json.dumps(
             [r[path]["launches"] for r in ranks]), flush=True)
         for r in ranks:
@@ -3347,7 +3105,7 @@ def phase_mesh2(dev, gm, cam, kf_gts, one, launches):
                 if r[path]["launches"][k] == 0:
                     fail(f"kernel {k} was never launched on rank "
                          f"{r['rank']} of {name}")
-            for k in KERNELS16 + YARDSTICKS:
+            for k in KERNELS16:
                 if r[path]["launches"][k]:
                     fail(f"kernel {k} was launched on rank {r['rank']} of "
                          f"{name}")
@@ -3497,7 +3255,7 @@ def run(dev):
     phase_done("kernels")
 
     # phase 3: the main path, with launch counts from 0
-    reset_counts()
+    path_launches.reset()
     t0 = time.perf_counter()
     gts, gt_overflow = render_ground_truth(dev, gm, cam, poses)
     torch.cuda.synchronize()
@@ -3548,7 +3306,7 @@ def run(dev):
     with uncounted():
         gts16, gt16_overflow = render_ground_truth(dev, gm, cam, poses,
                                                    tile16=True)
-    reset_counts()
+    path_launches.reset()
     t16 = run_schedule("main-path-tile16", dev, gm, cam, gts16, poses, kw16,
                        gt16_overflow, reps=TILE16_REPS)
     launches["main-path-tile16"] = read_counts(
@@ -3576,7 +3334,7 @@ def run(dev):
 
     # phase 4: the exact-gradient paths, each with launch counts from 0
     all_kernels = KERNELS32 + PREP_KERNELS
-    reset_counts()
+    path_launches.reset()
     pol = run_schedule("keyframe-polish", dev, gm, cam, gts, poses,
                        BENCH_KW, gt_overflow, polish=True)
     launches["keyframe-polish"] = read_counts("keyframe-polish", all_kernels)
@@ -3588,7 +3346,7 @@ def run(dev):
         dev, gm, cam, gts, poses, name="profile-keyframe-polish",
         polish=True))
 
-    reset_counts()
+    path_launches.reset()
     exa = run_schedule("exact-pyramid", dev, gm, cam, gts, poses, EXACT_KW,
                        gt_overflow, reps=EXACT_REPS, carry_H=False,
                        reuse_plans=False)
@@ -3637,23 +3395,11 @@ def run(dev):
              EXACT_MAX_ERR_M, 1, False,
              ("composite32_fwd_mxu", "composite32_bwd_bf16_mxu",
               "composite32_fwd_ntouch"), exact_kw)):
-        reset_counts()
+        path_launches.reset()
         rb = run_schedule(name, dev, gm, cam, gts, poses, kw, gt_overflow,
                           reps=reps, **track_kw)
         launches[name] = read_counts(name, required, forbidden=(
             "composite32_fwd", "composite32_bwd"))
-        if name.startswith("exact-pyramid-"):
-            # the same schedule on the backward design the sub-tile kernel
-            # replaced: 20 all-exact iterations a frame carry the rows' sum
-            # order into the poses (reported, not gated)
-            with uncounted(), replaced_backward():
-                old = run_schedule(f"{name}-tile1024-bwd", dev, gm, cam, gts,
-                                   poses, kw, gt_overflow, reps=1,
-                                   **track_kw)
-            print(f"{name}: mean error {rb['pose_err_mean_m'] * 1e3:.4f} mm "
-                  f"on the sub-tile backward, "
-                  f"{old['pose_err_mean_m'] * 1e3:.4f} mm on the design it "
-                  "replaced", flush=True)
         kw = {k: v for k, v in kw.items()
               if k not in ("kernel_bf16", "kernel_mxu")}
         with uncounted():
@@ -3676,7 +3422,7 @@ def run(dev):
     for name, fn, iters, max_err in (
             ("track_frame_gn", tracking.track_frame_gn, 20, None),
             ("track_frame", tracking.track_frame, 100, ADAM_MAX_ERR_M)):
-        reset_counts()
+        path_launches.reset()
         run_frame1(name, fn, iters, max_err, dev, gm, cam, gts, poses)
         launches[name] = read_counts(name, all_kernels)
     phase_done("exact, bf16/mxu paths, frame-1 trackers")
@@ -3690,7 +3436,7 @@ def run(dev):
     for name, t16, req, forb in (("mapping", False, KERNELS32, KERNELS16),
                                  ("mapping-tile16", True, KERNELS16,
                                   KERNELS32)):
-        reset_counts()
+        path_launches.reset()
         maps[name], be = run_mapping(name, dev, cam, kf_gts, kf_poses, t16)
         profiles.append(functools.partial(profile_mapping, name, be))
         launches[name] = read_counts(name, req + PREP_KERNELS + PG_KERNELS,
@@ -3743,12 +3489,12 @@ def run(dev):
     # fresh plan (window visibility).
     # Each row's source= and replaces= come from the port's registry of
     # the JAX package's Pallas sites (ops/launches.py PALLAS_SITES).
-    total = {n: sum(c[n] for c in launches.values()) for n in WRAPPERS}
+    total = {n: sum(c[n] for c in launches.values())
+             for n in path_launches.COUNTERS}
 
-    def site(name, variant="", yardstick=False):
+    def site(name, variant=""):
         where, src, note = path_launches.site_of(name)
         note = ", ".join(n for n in (note, variant) if n)
-        note = "; ".join(n for n in (note, yardstick and "yardstick") if n)
         return dict(source="gs_slam_analytica_jacobian_tpu_torch/" + src,
                     replaces=where + (f" ({note})" if note else ""))
 
@@ -3757,14 +3503,12 @@ def run(dev):
                     if c["case"] == "room_s2" and c["with_ntouch"] == with_nt
                     and not c["nt_weight"])
 
-    # the sub-tile kernels (B1', B1, B2) with PR 5's design's time on the
-    # same plan in the same call (tile1024_ms), the cells they evaluate
+    # the sub-tile kernels (B1', B1, B2) with the cells they evaluate
     # after the rect16 compaction and the block test (post_cull_cells)
     # beside the cells of the 32x32 tile-walk (tile_walk_cells), and PR
     # 1-5's walk bound beside the bound of the work needed
     def subtile_keys(c):
-        return dict(tile1024_ms=c["tile1024_ms"],
-                    post_cull_cells=c["post_cull_cells"],
+        return dict(post_cull_cells=c["post_cull_cells"],
                     rect_cells=c["rect_cells"],
                     tile_walk_cells=c["walked_cells"],
                     walk_bound_ms=c["walk_bound_ms"])
@@ -3788,13 +3532,11 @@ def run(dev):
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
         bound_by=c["bound_by"], library_ms=None, shape=c["shape"],
         repeat_bit_equal=c["repeat_bit_equal"], **subtile_keys(c)))
-    # B3' and B3 (sub-tile) with the one-thread-per-pixel design's time on
-    # the same plan in the same call (walk_ms) and the cells they evaluate
-    b3 = {}
+    # B3' and B3 (sub-tile) with the cells they evaluate
     for name, case, with_nt in (
             ("composite16_fwd", "room_s1_map16", False),
             ("composite16_fwd_ntouch", "room_s1_fresh16", True)):
-        c = b3[with_nt] = next(
+        c = next(
             c for c in cases16 if c["case"] == case
             and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
@@ -3802,12 +3544,8 @@ def run(dev):
             max_abs_err=max(c["max_abs_err"].values()),
             nt_mismatch=c["nt_mismatch"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
-            shape=c["shape"], walk_ms=c["walk_ms"],
-            post_cull_cells=c["post_cull_cells"], rect_cells=c["rect_cells"],
-            tile_walk_cells=c["walked_cells"],
-            walk_bound_ms=c["walk_bound_ms"]))
-    # B4 (sub-tile) with the one-thread-per-pixel design's time on the
-    # same plan in the same call (walk_ms) and the cells it evaluates
+            shape=c["shape"], **subtile_keys(c)))
+    # B4 (sub-tile) with the cells it evaluates
     c = next(c for c in b4_cases if c["cotangent"] == "loss")
     kernels.append(dict(
         name="composite16_bwd", route="cuda", **site("composite16_bwd"),
@@ -3815,21 +3553,16 @@ def run(dev):
         max_col_rel_err=c["max_col_rel_err"], ms=c["ms"],
         plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
         bound_by=c["bound_by"], library_ms=None, shape=c["shape"],
-        walk_ms=c["walk_ms"], repeat_bit_equal=c["repeat_bit_equal"],
-        post_cull_cells=c["post_cull_cells"], rect_cells=c["rect_cells"],
-        tile_walk_cells=c["walked_cells"],
-        walk_bound_ms=c["walk_bound_ms"]))
-    b4 = c
+        repeat_bit_equal=c["repeat_bit_equal"], **subtile_keys(c)))
     # the bf16 variants at the s=2 tracker plan (forward: the sub-tile
-    # bf16 kernel, with the one-CTA-per-tile bf16 design's time and the
-    # cells as for B1') and the s=1 exact plan (backward, loss cotangent),
-    # the f32 kernel's time on the same plan beside each; their bound is
+    # bf16 kernel, with the cells as for B1') and the s=1 exact plan
+    # (backward, loss cotangent), the f32 kernel's time on the same plan
+    # beside each; their bound is
     # the f32 kernels' operation count (scalar bfloat16 arithmetic, no
     # bf16x2 packing)
-    bf16_fwd = {}
     for name, with_nt in (("composite32_fwd_bf16", False),
                           ("composite32_fwd_ntouch_bf16", True)):
-        c = bf16_fwd[with_nt] = next(
+        c = next(
             c for c in cases_bf16 if c["case"] == "room_s2_bf16"
             and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
@@ -3838,10 +3571,8 @@ def run(dev):
             nt_mismatch=c["nt_mismatch"], ms=c["ms"], plain_ms=c["plain_ms"],
             bound_ms=c["bound_ms"], bound_by=c["bound_by"], library_ms=None,
             f32_ms=c["f32_ms"], shape=c["shape"], **subtile_keys(c)))
-    # B2-bf16 (sub-tile, the bf16 margin) with the one-CTA-per-tile bf16
-    # design's time on the same plan (tile1024_ms) and the cells it
-    # evaluates
-    b2_bf16 = c = next(c for c in b2_bf16_cases
+    # B2-bf16 (sub-tile, the bf16 margin) with the cells it evaluates
+    c = next(c for c in b2_bf16_cases
                        if c["case"] == "room_s1_polish_bf16"
                        and c["cotangent"] == "loss")
     kernels.append(dict(
@@ -3854,15 +3585,14 @@ def run(dev):
         shape=c["shape"], repeat_bit_equal=c["repeat_bit_equal"],
         **subtile_keys(c)))
     # the mxu variants likewise: the s=2 tracker plan (forward: the
-    # sub-tile mxu kernel, with the one-CTA-per-tile mxu design's time
-    # and the cells as for B1') and the s=1 polish plan (backward, loss
-    # cotangent), the f32 kernel's time on the same plan beside each; the
+    # sub-tile mxu kernel, with the cells as for B1') and the s=1 polish
+    # plan (backward, loss cotangent), the f32 kernel's time on the same
+    # plan beside each; the
     # bound charges the tensor cores' share at the TF32 peak beside the
     # CUDA cores' at the FP32 peak
-    mxu_fwd = {}
     for name, with_nt in (("composite32_fwd_mxu", False),
                           ("composite32_fwd_ntouch_mxu", True)):
-        c = mxu_fwd[with_nt] = next(
+        c = next(
             c for c in cases_mxu if c["case"] == "room_s2_mxu"
             and c["with_ntouch"] == with_nt and not c["nt_weight"])
         kernels.append(dict(
@@ -3872,19 +3602,14 @@ def run(dev):
             plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
             bound_by=c["bound_by"],
             bound_tensor_core_ms=c["bound_tensor_core_ms"], library_ms=None,
-            f32_ms=c["f32_ms"], shape=c["shape"],
-            vs_tile1024_max_abs_diff=c["vs_tile1024_max_abs_diff"],
-            vs_tile1024_values_differing=c["vs_tile1024_values_differing"],
-            **subtile_keys(c)))
-    # B2-mxu and B2-bf16-mxu (sub-tile, the mxu margin) with the
-    # one-CTA-per-tile design's time for the same falloff on the same plan
-    # and the cells each evaluates
-    b2_mxu = {}
+            f32_ms=c["f32_ms"], shape=c["shape"], **subtile_keys(c)))
+    # B2-mxu and B2-bf16-mxu (sub-tile, the mxu margin) with the cells
+    # each evaluates
     for name, case in (("composite32_bwd_mxu", "room_s1_polish_mxu"),
                        ("composite32_bwd_bf16_mxu",
                         "room_s1_polish_bf16_mxu")):
-        c = b2_mxu[name] = next(c for c in b2_mxu_cases if c["case"] == case
-                                and c["cotangent"] == "loss")
+        c = next(c for c in b2_mxu_cases if c["case"] == case
+                 and c["cotangent"] == "loss")
         kernels.append(dict(
             name=name, route="cuda", **site(name), launches=total[name],
             max_abs_err=c["max_abs_err"],
@@ -3893,40 +3618,6 @@ def run(dev):
             bound_by=c["bound_by"], library_ms=None, f32_ms=c["f32_ms"],
             shape=c["shape"], repeat_bit_equal=c["repeat_bit_equal"],
             **subtile_keys(c)))
-    # the yardsticks: the designs the sub-tile kernels replaced, on the
-    # same plans in the same calls, launched by no path (launches 0)
-    f32_fwd = pick(False)
-    b2 = next(c for c in b2_cases
-              if c["case"] == "room_s1_polish" and c["cotangent"] == "loss")
-    for name, c, err, ms in (
-            ("composite32_fwd_tile1024", f32_fwd,
-             f32_fwd["tile1024_max_abs_err"], f32_fwd["tile1024_ms"]),
-            ("composite32_bwd_tile1024", b2, b2["tile1024_max_abs_err"],
-             b2["tile1024_ms"]),
-            ("composite32_fwd_mxu_tile1024", mxu_fwd[False],
-             mxu_fwd[False]["tile1024_max_abs_err"],
-             mxu_fwd[False]["tile1024_ms"]),
-            ("composite16_bwd_walk", b4, b4["walk_max_abs_err"],
-             b4["walk_ms"]),
-            ("composite32_fwd_bf16_tile1024", bf16_fwd[False],
-             bf16_fwd[False]["tile1024_max_abs_err"],
-             bf16_fwd[False]["tile1024_ms"]),
-            ("composite16_fwd_walk", b3[False],
-             b3[False]["walk_max_abs_err"], b3[False]["walk_ms"]),
-            ("composite32_bwd_bf16_tile1024", b2_bf16,
-             b2_bf16["tile1024_max_abs_err"], b2_bf16["tile1024_ms"]),
-            ("composite32_bwd_mxu_tile1024", b2_mxu["composite32_bwd_mxu"],
-             b2_mxu["composite32_bwd_mxu"]["tile1024_max_abs_err"],
-             b2_mxu["composite32_bwd_mxu"]["tile1024_ms"]),
-            ("composite32_bwd_bf16_mxu_tile1024",
-             b2_mxu["composite32_bwd_bf16_mxu"],
-             b2_mxu["composite32_bwd_bf16_mxu"]["tile1024_max_abs_err"],
-             b2_mxu["composite32_bwd_bf16_mxu"]["tile1024_ms"])):
-        kernels.append(dict(
-            name=name, route="cuda", **site(name, yardstick=True),
-            launches=total[name], max_abs_err=err, ms=ms,
-            plain_ms=c["plain_ms"], bound_ms=c["bound_ms"],
-            bound_by=c["bound_by"], library_ms=None, shape=c["shape"]))
     # P1: the fused preprocess at the main path's capacity (ms: device
     # time a call, from the profiled pass; wall_ms: a call's wall among
     # calls issued back to back; plain: the eager version, forward alone
@@ -3938,7 +3629,7 @@ def run(dev):
             name=name, route="cuda",
             source="gs_slam_analytica_jacobian_tpu_torch/csrc/preprocess.cu",
             replaces="none: " + path_launches.OTHER_SOURCES[
-                "csrc/preprocess.cu"],
+                "csrc/preprocess.cu"][0],
             launches=total[name], max_abs_err=main[f"{k}_max_abs_err"],
             bit_equal=all(main[f"{k}_bit_equal"].values()),
             ms=main.get(f"{k}_device_ms"), wall_ms=main[f"{k}_wall_ms"],
@@ -3977,7 +3668,7 @@ def run(dev):
             name=name, route="cuda",
             source="gs_slam_analytica_jacobian_tpu_torch/csrc/pair_gather.cu",
             replaces="none: " + path_launches.OTHER_SOURCES[
-                "csrc/pair_gather.cu"],
+                "csrc/pair_gather.cu"][0],
             launches=total[name], **check,
             ms=r.get(f"{k}_device_ms"), wall_ms=r[f"{k}_wall_ms"],
             plain_ms=r.get(f"plain_{k}_device_ms"),
@@ -3993,9 +3684,8 @@ def run(dev):
                           plain_ms=c.get(f"plain_{k}_device_ms"),
                           bound_ms=c[f"bound_{k}_ms"])
                      for c in pg_recs[1:] if f"{k}_wall_ms" in c]))
-    # B5: one entry per variant, at the script's shape (ms and group_ms
-    # in turns); launches from the script's own run (phase_abl16); then
-    # the yardsticks, the first port's design (launched by no run)
+    # B5: one entry per variant, at the script's shape; launches from the
+    # script's own run (phase_abl16)
     for v, r in abl.items():
         kernels.append(dict(
             name=f"abl16_{v}", route="cuda",
@@ -4005,20 +3695,7 @@ def run(dev):
             ms=r["ms"], us_per_chunk=r["us_per_chunk"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, shape="1216x704",
-            group_ms=r["group_ms"], vs_group=r["vs_group"],
             bound_pct=r["bound_pct"]))
-    for v, r in abl.items():
-        kernels.append(dict(
-            name=f"abl16_{v}_group", route="cuda",
-            **site("scripts/abl16.py:run(design='group')", f"variant {v}",
-                   yardstick=True),
-            launches=r["group_launches"],
-            max_abs_err=r["group_max_abs_err"],
-            max_rel_err=r["group_max_rel_err"],
-            bit_equal_to_subtile=r["group_bit_equal"], ms=r["group_ms"],
-            us_per_chunk=r["group_us_per_chunk"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
-            shape="1216x704", bound_pct=r["group_bound_pct"]))
     print(f"launches by path: {json.dumps(launches)}", flush=True)
     print(f"phases (s since the build began): {json.dumps(phases)}",
           flush=True)

@@ -26,10 +26,8 @@
 // Every variant evaluates every cell it walks: the cost per cell is what
 // the harness measures, so nothing is culled. A pixel walks its pairs in
 // order, so the TPU's Hillis-Steele scan is a running product and the
-// "mxu" accumulate cfeat^T w four fused multiply-adds a cell. The
-// arithmetic of a cell is the same in both designs below, operation for
-// operation (expf, __fmaf_rn, built with -fmad=false), and so is the order
-// of every sum: the two give the same output bit for bit.
+// "mxu" accumulate cfeat^T w four fused multiply-adds a cell (expf,
+// __fmaf_rn, built with -fmad=false).
 //
 // What bounds it on the H100: instruction issue. A cell takes ~20-32 FP32
 // operations (counted per variant in scripts/abl16.py), against 64 bytes
@@ -38,29 +36,22 @@
 // reach by about half even when every issue slot does arithmetic; the
 // shared-memory loads and the loop's integer work take issue slots too.
 //
-// Two designs, both here:
-// - abl16_<variant> (the design in use): one CTA of 64 threads per 16x16
-//   subtile (4 n_gx n_gy CTAs: 3,344 at the script's shape), four pixels
-//   a thread, (x, y + 4 m) for m < 4. The chunk's (16 x 128) feature-major
-//   box is copied as it lies in feat (cp.async, 16 bytes a copy, zero-
-//   filled past B; 4-byte copies where feat or the range is not 16-byte
-//   aligned) into a double buffer, chunk c + 1 in flight while chunk c is
-//   walked, one CTA barrier a chunk. The walk takes four pairs at a time,
-//   two such groups a loop step: one 16-byte broadcast load per feature
-//   the variant reads (6, 10 or 14) serves four pairs and the thread's
-//   four pixels, 0.625 shared-memory loads a cell under full (0.875 under
-//   prodbody) against 10 (14). The four pixels share x, so dx and its
-//   products with the conic (r2 dx, r2 dx dx, r3 dx) are computed once for
-//   them, as are prodbody's rect and row tests (one 16-px tile, one row
-//   index). Two pixels a thread (128 threads), or one four-pair group a
-//   step, ran slower on the H100.
-// - abl16_<variant>_group (the first port's design, kept as a yardstick
-//   that only chip_smoke.py and tests/test_torch_cuda.py launch): one CTA
-//   of 256 threads, a thread per pixel, per 32x32 group walks its four
-//   subtiles in turn; a chunk of 128 pair rows is staged between two
-//   barriers into a pair-major [128][17] table (8.5 KB) and a cell reads
-//   its row with 10 scalar loads (14 under prodbody): about one
-//   shared-memory load per three FP32 operations.
+// The design: one CTA of 64 threads per 16x16 subtile (4 n_gx n_gy CTAs:
+// 3,344 at the script's shape), four pixels a thread, (x, y + 4 m) for
+// m < 4. The chunk's (16 x 128) feature-major box is copied as it lies in
+// feat (cp.async, 16 bytes a copy, zero-filled past B; 4-byte copies where
+// feat or the range is not 16-byte aligned) into a double buffer, chunk
+// c + 1 in flight while chunk c is walked, one CTA barrier a chunk. The
+// walk takes four pairs at a time, two such groups a loop step: one
+// 16-byte broadcast load per feature the variant reads (6, 10 or 14)
+// serves four pairs and the thread's four pixels, 0.625 shared-memory
+// loads a cell under full (0.875 under prodbody) against 10 (14). The four
+// pixels share x, so dx and its products with the conic (r2 dx, r2 dx dx,
+// r3 dx) are computed once for them, as are prodbody's rect and row tests
+// (one 16-px tile, one row index). Two pixels a thread (128 threads), one
+// four-pair group a step, or the first port's design (one CTA of 256
+// threads per 32x32 group, a thread per pixel, a cell reading its row with
+// 10 scalar loads from a pair-major table) ran slower on the H100.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,10 +65,7 @@ constexpr float kAlphaMin = 1.0f / 255.0f;
 constexpr float kAlphaMax = 0.99f;
 constexpr float kTEps = 1e-4f;
 
-// ---------------------------------------------------------------------------
-// abl16_<variant>: one CTA per subtile, four pixels a thread
-// ---------------------------------------------------------------------------
-
+// one CTA per subtile, four pixels a thread
 constexpr int kPPT = 4;            // pixels a thread
 constexpr int kThreads = kPix / kPPT;  // 64: two warps a CTA
 constexpr int kUnroll = 2;         // groups of four pairs a loop step
@@ -160,9 +148,9 @@ struct Pixel {
   bool done = false;
 };
 
-// One (pair, pixel) cell, the group kernel's arithmetic: r the pair's
-// features, dx = r[0] - px and the dx terms shared with the thread's other
-// pixels, ``keep`` prodbody's rect and row tests.
+// One (pair, pixel) cell: r the pair's features, dx = r[0] - px and the
+// dx terms shared with the thread's other pixels, ``keep`` prodbody's rect
+// and row tests.
 template <bool kExp, bool kScan, bool kMxu, bool kProd>
 __device__ __forceinline__ void cell(const float* r, float dx, float cadx2,
                                      float cbdx, bool keep, Pixel& s) {
@@ -305,153 +293,31 @@ abl16_subtile_kernel(const float* __restrict__ feat,  // (16, B)
   }
 }
 
-// ---------------------------------------------------------------------------
-// abl16_<variant>_group: the yardstick, one CTA per 32x32 group
-// ---------------------------------------------------------------------------
-
 template <bool kExp, bool kScan, bool kMxu, bool kTrans, bool kDyn,
           bool kProd>
-__global__ void __launch_bounds__(kPix)
-abl16_group_kernel(const float* __restrict__ feat,  // (16, B)
-                   const int* __restrict__ ranges,  // (n_tiles16, 2)
-                   float* __restrict__ out,         // (n_gy, n_gx, 4, 256)
-                   int n_gx, int W, int H, int nc_fixed, int B) {
-  __shared__ float s_feat[kChunk][kF + 1];  // +1: no bank conflicts
-  const int group = blockIdx.x;
-  const int gx = group % n_gx;
-  const int gy = group / n_gx;
-  const int q = threadIdx.x;
-  const int n_tx16 = 2 * n_gx;
-
-  for (int j = 0; j < 4; ++j) {
-    const int t16 = (2 * gy + j / 2) * n_tx16 + (2 * gx + j % 2);
-    const int start = ranges[2 * t16];
-    const int n_live = ranges[2 * t16 + 1] - start;
-    const int nc = kDyn ? (n_live + kChunk - 1) / kChunk : nc_fixed;
-    float px, py;
-    bool done = false;
-    if constexpr (kProd) {
-      const int x = gx * 32 + (j % 2) * 16 + q % 16;
-      const int y = gy * 32 + (j / 2) * 16 + q / 16;
-      px = static_cast<float>(x);
-      py = static_cast<float>(y);
-      done = !((x < W) && (y < H));
-    } else {
-      px = static_cast<float>(q % 16);
-      py = static_cast<float>(q / 16);
-    }
-    const float t16x = floorf(px / 16.0f);
-    const float t16y = floorf(py / 16.0f);
-    float T = 1.0f;
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
-
-    for (int c = 0; c < nc; ++c) {
-      const int base = start + c * kChunk;
-      __syncthreads();  // the previous chunk's rows are consumed
-      if constexpr (kTrans) {
-        for (int i = q; i < kChunk * kF; i += kPix) {
-          const int f = i / kChunk;
-          const int k = i % kChunk;
-          const int p = base + k;
-          s_feat[k][f] = p < B ? feat[static_cast<size_t>(f) * B + p] : 0.0f;
-        }
-      } else {
-        const float v = 0.5f + (base < B ? feat[base] : 0.0f);
-        for (int i = q; i < kChunk * kF; i += kPix) {
-          s_feat[i / kF][i % kF] = v;
-        }
-      }
-      __syncthreads();
-
-      const float T_chunk = T;
-      float cum = 1.0f;  // running product of (1 - alpha_eff)
-      for (int k = 0; k < kChunk; ++k) {
-        const float* r = s_feat[k];
-        const float dx = r[0] - px;
-        const float dy = r[1] - py;
-        const float power =
-            -0.5f * (r[2] * dx * dx + r[4] * dy * dy) - r[3] * dx * dy;
-        const float a_un = kExp ? r[5] * expf(power) : r[5] * (1.0f + power);
-        const float alpha = fminf(kAlphaMax, a_un);
-        bool ok = power <= 0.0f && alpha >= kAlphaMin;
-        if constexpr (kProd) {
-          const bool rect_ok = (t16x >= r[10]) && (t16x < r[12]) &&
-                               (t16y >= r[11]) && (t16y < r[13]);
-          ok = ok && rect_ok && (k < n_live - c * kChunk) && !done;
-        }
-        const float a_eff = ok ? alpha : 0.0f;
-        float T_excl, T_incl;
-        if constexpr (kScan) {
-          T_excl = T_chunk * cum;
-          cum = cum * (1.0f - a_eff);
-          T_incl = T_chunk * cum;
-        } else {
-          T_excl = T_chunk * (1.0f - a_eff);
-          T_incl = T_excl;
-        }
-        float w = a_eff * T_excl;
-        if constexpr (kProd) {
-          if (ok && T_incl < kTEps) {
-            done = true;  // the triggering pair is dropped
-            w = 0.0f;
-          } else if (ok) {
-            T = fminf(T, T_incl);
-          }
-        } else {
-          T = fminf(T, T_incl);
-        }
-        if constexpr (kMxu) {
-          acc0 = __fmaf_rn(r[6], w, acc0);
-          acc1 = __fmaf_rn(r[7], w, acc1);
-          acc2 = __fmaf_rn(r[8], w, acc2);
-          acc3 = __fmaf_rn(r[9], w, acc3);
-        } else {
-          acc0 += w;
-        }
-      }
-      if constexpr (!kMxu) acc0 += s_feat[0][6];
-    }
-    out[(static_cast<size_t>(group) * 4 + j) * kPix + q] =
-        ((acc0 + acc1) + acc2) + acc3 + T;
-  }
-}
-
-template <bool kExp, bool kScan, bool kMxu, bool kTrans, bool kDyn,
-          bool kProd, bool kGroup>
 int launch(const void* feat, const void* ranges, void* out, int n_gx,
            int n_gy, int W, int H, int nc, int B, void* stream) {
   if (n_gx * n_gy <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* f = static_cast<const float*>(feat);
-  const int* r = static_cast<const int*>(ranges);
-  float* o = static_cast<float*>(out);
-  if constexpr (kGroup) {
-    abl16_group_kernel<kExp, kScan, kMxu, kTrans, kDyn, kProd>
-        <<<n_gx * n_gy, kPix, 0, s>>>(f, r, o, n_gx, W, H, nc, B);
-  } else {
-    abl16_subtile_kernel<kExp, kScan, kMxu, kTrans, kDyn, kProd>
-        <<<4 * n_gx * n_gy, kThreads, 0, s>>>(f, r, o, n_gx, W, H, nc, B);
-  }
+  abl16_subtile_kernel<kExp, kScan, kMxu, kTrans, kDyn, kProd>
+      <<<4 * n_gx * n_gy, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const float*>(feat), static_cast<const int*>(ranges),
+          static_cast<float*>(out), n_gx, W, H, nc, B);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// C entries, loaded with ctypes, two per variant (abl16_<variant>, one CTA
-// per subtile; abl16_<variant>_group, the yardstick): feat (16, B) f32,
-// ranges (n_tiles16, 2) int32, out (n_gy, n_gx, 4, 256) f32; nc the fixed
-// chunk count of the non-dynamic variants. Launch on ``stream`` and
-// return cudaGetLastError().
-#define ABL16_ENTRY(NAME, EXP, SCAN, MXU, TRANS, DYN, PROD, GROUP)          \
-  extern "C" int NAME(const void* feat, const void* ranges, void* out,      \
-                      int n_gx, int n_gy, int W, int H, int nc, int B,      \
-                      void* stream) {                                       \
-    return launch<EXP, SCAN, MXU, TRANS, DYN, PROD, GROUP>(                 \
+// C entries, loaded with ctypes, one per variant (abl16_<variant>): feat
+// (16, B) f32, ranges (n_tiles16, 2) int32, out (n_gy, n_gx, 4, 256) f32;
+// nc the fixed chunk count of the non-dynamic variants. Launch on
+// ``stream`` and return cudaGetLastError().
+#define ABL16_ENTRIES(V, EXP, SCAN, MXU, TRANS, DYN, PROD)                  \
+  extern "C" int abl16_##V(const void* feat, const void* ranges, void* out, \
+                           int n_gx, int n_gy, int W, int H, int nc, int B, \
+                           void* stream) {                                  \
+    return launch<EXP, SCAN, MXU, TRANS, DYN, PROD>(                        \
         feat, ranges, out, n_gx, n_gy, W, H, nc, B, stream);                \
   }
-#define ABL16_ENTRIES(V, EXP, SCAN, MXU, TRANS, DYN, PROD)                  \
-  ABL16_ENTRY(abl16_##V, EXP, SCAN, MXU, TRANS, DYN, PROD, false)           \
-  ABL16_ENTRY(abl16_##V##_group, EXP, SCAN, MXU, TRANS, DYN, PROD, true)
 
 ABL16_ENTRIES(full, true, true, true, true, false, false)
 ABL16_ENTRIES(noexp, false, true, true, true, false, false)

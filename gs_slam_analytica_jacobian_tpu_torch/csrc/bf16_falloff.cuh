@@ -1,5 +1,5 @@
 // The bfloat16 bodies of the 32x32 compositing kernels, shared by the
-// forward (tile_kernel2_fwd.cu) and the backward (tile_kernel2_bwd.cu).
+// forward (subtile_fwd.cuh) and the backward (subtile_bwd.cuh).
 //
 // They replace the bf16 branches of the Pallas TPU kernels in
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py

@@ -1,6 +1,6 @@
-// The Gaussian falloff on the tensor cores, shared by the forwards
-// (tile32_fwd_subtile_mxu.cu; tile_kernel2_fwd.cu, the one-CTA-per-tile
-// yardstick) and the backward (tile_kernel2_bwd.cu) under mxu.
+// The Gaussian falloff on the tensor cores, shared by the forward
+// (tile32_fwd_subtile_mxu.cu, with its check mxu_power_tile) and the
+// backward (tile32_bwd_subtile.cu) under mxu.
 //
 // Replaces the MXU bodies of the Pallas TPU kernels in
 //   gs_slam_analytica_jacobian_tpu/ops/pallas/tile_kernel2.py
@@ -184,11 +184,6 @@ __device__ __forceinline__ void block_step(int k, bool live, const float* g8,
     power_block(g8 + k * kG, p8, pow);
     __syncwarp();
   }
-}
-
-// The clamped power of pair k of the chunk at ``lane``'s pixel.
-__device__ __forceinline__ float power_at(const float* pow, int k, int lane) {
-  return clamp_power(pow[(k % kBlock) * kPix + lane]);
 }
 
 // Opt ``Kernel`` into ``bytes`` of dynamic shared memory (above the 48 KB

@@ -14,8 +14,7 @@
 // and d_depth. Built with -fmad=false, so it rounds as the plain version
 // (ops/tile_kernel2.py::plain_bwd_walk) does.
 //
-// The cell's falloff axis (kBF16, kMXU), as the one-CTA-per-tile bodies of
-// tile_kernel2_bwd.cu have it: f32, the direct f32 power and f32
+// The cell's falloff axis (kBF16, kMXU): f32, the direct f32 power and f32
 // products; kBF16, the bfloat16 falloff (bf16_falloff::power and ::a_un)
 // and the five quadratic-form products formed in bfloat16
 // (bf16_falloff::quad_grads), each widened; kMXU, the power comes in from

@@ -16,8 +16,7 @@
 // kBF16, the falloff: f32, the direct f32 power; bf16, the reference's
 // bfloat16 body (bf16_falloff.cuh: power from the f32 deltas with every
 // product and sum rounded to bfloat16, clamped to <= 0, and opa
-// exp(power) rounded once more, both widened), called as the
-// one-CTA-per-tile bf16 kernel (tile_kernel2_fwd.cu) calls it. Either way
+// exp(power) rounded once more, both widened). Either way
 // the 0.99 cap, the 1/255 and 1e-4 tests, the transmittance and the sums
 // are f32, in the same order, and the block test carries the margin of
 // its falloff (subtile_cull.cuh: kCullRel / kCullAbs, or kCullBf16Rel /

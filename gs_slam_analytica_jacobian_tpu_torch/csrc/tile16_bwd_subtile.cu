@@ -19,8 +19,7 @@
 //
 // What bounds it on the H100: the FP32 operations of the cells a pixel
 // evaluates, and the per-pair reduction. The design it replaced (one
-// thread per pixel, a warp two pixel rows; kept in tile_kernel16_bwd.cu
-// as the yardstick C entry composite16_bwd_walk) evaluated the tests at
+// thread per pixel, a warp two pixel rows) evaluated the tests at
 // every cell of the tile-walk, reduced every pair any lane of a warp
 // included with ten butterflies (50 shuffles), staged 32 rows at a time
 // with plain loads and met three CTA barriers per 32 rows.

@@ -17,8 +17,7 @@
 //
 // What bounds it on the H100: the FP32 operations of the cells a pixel
 // evaluates. The design it replaced (one thread per pixel, a warp two
-// pixel rows; kept in tile_kernel16_fwd.cu as the yardstick C entry
-// composite16_fwd_walk) evaluated the falloff at every cell of the
+// pixel rows) evaluated the falloff at every cell of the
 // tile-walk before the rect test, staged 128 rows at a time with plain
 // loads and met two or three CTA barriers a chunk.
 // What the design does about it (subtile_fwd.cuh, subtile_cull.cuh):

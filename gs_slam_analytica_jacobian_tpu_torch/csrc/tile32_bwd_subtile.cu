@@ -12,9 +12,8 @@
 // composite32_bwd_mxu) and the two together (mxu=True, bf16=True: the MXU
 // falloff, which takes precedence over bf16's (:157-159), with the bf16
 // gradient products; C entry composite32_bwd_bf16_mxu), with the per-pair
-// output of tile_kernel2_bwd.cu
-// (reference backward.cu:648-872): for every pair row of feat walked by
-// its 32x32 tile, the row
+// output of the reference's backward (backward.cu:648-872): for every
+// pair row of feat walked by its 32x32 tile, the row
 //   [d_mx, d_my, d_ca, d_cb, d_cc, d_opa, d_r, d_g, d_b, d_depth, 0 x 6]
 // summed over the tile's pixels, from the forward's color/depth sums
 // (before background) and final T, and their cotangents dC(3), dD, dT.
@@ -25,9 +24,9 @@
 //   dL/dalpha = A T_excl - (dT T_final + Stot - pA) / max(1 - alpha, 1e-6)
 // (the one-pass form, tile_kernel2.py:456-467) through G = a_un / opa to
 // the five quadratic-form terms, d_opa, d_rgb and d_depth. The per-cell
-// arithmetic and its order are tile_kernel2_bwd.cu's, in
-// subtile_bwd.cuh's bwd_cell with its falloff axis (kBF16, kMXU), built
-// with -fmad=false:
+// arithmetic and its order are the plain version's
+// (ops/tile_kernel2.py::plain_bwd_walk), in subtile_bwd.cuh's bwd_cell
+// with its falloff axis (kBF16, kMXU), built with -fmad=false:
 // - f32: the direct power, f32 products;
 // - bf16: bf16_falloff.cuh's power and a_un, and its quad_grads for the
 //   five products (G, dx, dy, dL/dG and the conic rounded to bfloat16,
@@ -45,10 +44,7 @@
 // evaluates (under bf16 also the conversions and the bfloat16 roundings,
 // scalar, one instruction each; under mxu also the tensor cores' three
 // passes a power block), and the per-pair reduction. The designs it
-// replaced (one CTA of 1024 threads per tile, kept in tile_kernel2_bwd.cu
-// as the yardstick C entries composite32_bwd_tile1024 (f32),
-// composite32_bwd_bf16_tile1024, composite32_bwd_mxu_tile1024 and
-// composite32_bwd_bf16_mxu_tile1024)
+// replaced (one CTA of 1024 threads per tile, in each of the four bodies)
 // recomputed the tests at every cell of the 32x32 tile-walk (7.9%
 // included on the s=1 polish plan; under mxu a power block for every 16
 // consecutive pairs), reduced every pair any lane of a warp included with

@@ -12,7 +12,7 @@
 //   opa exp(power) in bfloat16 from f32 deltas (bf16_falloff.cuh),
 //   widened before the 0.99 cap and the skip tests; the block test with
 //   the bfloat16 margin (subtile_cull.cuh, kCullBf16Rel / kCullBf16Abs).
-// The per-cell arithmetic and its order are tile_kernel2_fwd.cu's, built
+// The per-cell arithmetic and its order are the plain version's, built
 // with -fmad=false, so the images are bit for bit the plain version's
 // (ops/tile_kernel2.py::plain_walk, with or without bf16).
 //
@@ -38,11 +38,6 @@
 // The f32 instantiations keep the registers, the shared memory and the
 // images (bit for bit) of this file's body before it moved to
 // subtile_fwd.cuh: only the template axes are new.
-//
-// The design these replaced, one CTA of 1024 threads per tile, stays
-// compiled in tile_kernel2_fwd.cu as yardsticks timed on the same plans
-// by chip_smoke.py only: the C entries composite32_fwd_tile1024 (f32) and
-// composite32_fwd_bf16_tile1024 (bf16).
 
 #include "subtile_fwd.cuh"
 

@@ -24,8 +24,7 @@
 // pixel evaluates (log1pf, a second expf and a division on every cell
 // that passes the skip tests), beside the tensor cores' three passes.
 // The design it replaced (one CTA of 1024 threads per tile, a warp per
-// tile row; kept in tile_kernel2_fwd.cu as the yardstick C entry
-// composite32_fwd_mxu_tile1024) evaluated every cell of the 32x32
+// tile row) evaluated every cell of the 32x32
 // tile-walk, 16 consecutive pairs a power block, and 1024 threads met at
 // every 128-row chunk. What the design does about it (subtile_cull.cuh):
 // - one CTA of 256 threads per 16x16 quarter of a tile (the quarter is
@@ -271,6 +270,52 @@ int launch_one(const void* feat, const void* ranges, void* out, void* ntouch,
 
 }  // namespace
 
+// The check of the tensor-core falloff alone, in the layout it was written
+// for: one CTA of 1024 threads over a 32x32 tile, a warp per tile row, a
+// chunk of 128 pair rows, its G8 rows and each warp's P8 and power block in
+// dynamic shared memory (mxu_falloff::Smem, opted in above the 48 KB
+// default).
+namespace {
+namespace power_tile {
+
+constexpr int kTile = 32;
+constexpr int kThreads = kTile * kTile;  // one thread per pixel
+constexpr int kWarps = kThreads / 32;    // one warp per pixel row
+constexpr int kChunk = 128;              // pair rows of the chunk
+
+using MxuSmem = mxu_falloff::Smem<kChunk, kWarps>;
+
+// One chunk's power block through mxu_falloff.cuh, unclamped: the check of
+// the tensor-core falloff itself (chip_smoke.py holds it against the f32
+// G6 @ P6). One CTA of 1024 threads; pixel q = y * 32 + x of tile (tx, ty).
+__global__ void __launch_bounds__(kThreads)
+mxu_power_tile_kernel(const float4* __restrict__ feat,  // (n, 4) x float4
+                      int n, int tx, int ty,
+                      float* __restrict__ out) {         // (128, 1024)
+  extern __shared__ __align__(128) float s_mxu[];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const MxuSmem mxu(s_mxu, warp);
+  const float cx_t = mxu_falloff::tile_centre(tx);
+  const float cy_t = mxu_falloff::tile_centre(ty);
+  mxu_falloff::p8_column(static_cast<float>(tx * kTile + lane) - cx_t,
+                         static_cast<float>(ty * kTile + warp) - cy_t, mxu.p8,
+                         lane);
+  mxu_falloff::fill_g8<kChunk>(mxu.g8, feat, n, tid, cx_t, cy_t);
+  __syncthreads();
+  for (int b = 0; b < kChunk; b += mxu_falloff::kBlock) {
+    mxu_falloff::block_step(b, true, mxu.g8, mxu.p8, mxu.pow);
+    for (int i = 0; i < mxu_falloff::kBlock; ++i) {
+      out[static_cast<size_t>(b + i) * kThreads + tid] =
+          mxu.pow[i * mxu_falloff::kPix + lane];
+    }
+  }
+}
+
+}  // namespace power_tile
+}  // namespace
+
 // C entry, loaded with ctypes: composite32_fwd_mxu (B1-mxu with n_touched,
 // B1'-mxu without; under mxu the reference's bf16 flag has no effect on
 // the forward), the signature of composite32_fwd. feat: (B_al, 16) f32,
@@ -293,4 +338,19 @@ extern "C" int composite32_fwd_mxu(const void* feat, const void* ranges,
   }
   return launch_one<true, false>(feat, ranges, out, ntouch, n_tiles, n_tx, W,
                                  H, stream);
+}
+
+// The power block of one chunk of n <= 128 pair rows (feat, 16-byte
+// aligned) at tile (tx, ty): out (128, 1024) f32, rows >= n zero. Only the
+// card checks call it (ops/tile_kernel2.py::mxu_power_tile).
+extern "C" int mxu_power_tile(const void* feat, int n, int tx, int ty,
+                              void* out, void* stream) {
+  namespace pt = power_tile;
+  const cudaError_t e = mxu_falloff::opt_in_smem<pt::mxu_power_tile_kernel>(
+      pt::MxuSmem::kBytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  pt::mxu_power_tile_kernel<<<1, pt::kThreads, pt::MxuSmem::kBytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(feat), n, tx, ty, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }

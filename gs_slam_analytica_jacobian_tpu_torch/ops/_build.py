@@ -32,8 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 # kernel library name -> (source file, {C entry: argtypes}); a source may
-# export several entries (the bf16 and mxu variants, and the bodies of the
-# one-CTA-per-tile designs kept as yardsticks, beside each other)
+# export several entries (the bf16 and mxu variants beside each other)
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -45,31 +44,18 @@ LIBRARIES = {
                            {"composite32_fwd": _FWD_ARGS,
                             "composite32_fwd_bf16": _FWD_ARGS}),
     "tile32_fwd_subtile_mxu": ("tile32_fwd_subtile_mxu.cu",
-                               {"composite32_fwd_mxu": _FWD_ARGS}),
+                               {"composite32_fwd_mxu": _FWD_ARGS,
+                                "mxu_power_tile": [_VP, _INT, _INT, _INT,
+                                                   _VP, _VP]}),
     "tile32_bwd_subtile": ("tile32_bwd_subtile.cu",
                            {"composite32_bwd": _BWD_ARGS,
                             "composite32_bwd_bf16": _BWD_ARGS,
                             "composite32_bwd_mxu": _BWD_ARGS,
                             "composite32_bwd_bf16_mxu": _BWD_ARGS}),
-    "tile_kernel2_fwd": ("tile_kernel2_fwd.cu",
-                         {"composite32_fwd_tile1024": _FWD_ARGS,
-                          "composite32_fwd_bf16_tile1024": _FWD_ARGS,
-                          "composite32_fwd_mxu_tile1024": _FWD_ARGS,
-                          "mxu_power_tile": [_VP, _INT, _INT, _INT, _VP,
-                                             _VP]}),
-    "tile_kernel2_bwd": ("tile_kernel2_bwd.cu",
-                         {"composite32_bwd_tile1024": _BWD_ARGS,
-                          "composite32_bwd_bf16_tile1024": _BWD_ARGS,
-                          "composite32_bwd_mxu_tile1024": _BWD_ARGS,
-                          "composite32_bwd_bf16_mxu_tile1024": _BWD_ARGS}),
     "tile16_fwd_subtile": ("tile16_fwd_subtile.cu",
                            {"composite16_fwd": _FWD_ARGS}),
-    "tile_kernel16_fwd": ("tile_kernel16_fwd.cu",
-                          {"composite16_fwd_walk": _FWD_ARGS}),
     "tile16_bwd_subtile": ("tile16_bwd_subtile.cu",
                            {"composite16_bwd": _BWD_ARGS}),
-    "tile_kernel16_bwd": ("tile_kernel16_bwd.cu",
-                          {"composite16_bwd_walk": _BWD_ARGS}),
     "preprocess": ("preprocess.cu",
                    {"preprocess_fwd": [_VP] * 18,
                     "preprocess_bwd": [_VP] * 21}),
@@ -79,9 +65,9 @@ LIBRARIES = {
                      "segment_reduce_fwd": [_VP, _VP, _VP, _VP, _LL, _LL,
                                             _VP, _INT, _INT, _INT, _INT,
                                             _INT, _VP]}),
-    "abl16": ("abl16.cu", {f"abl16_{v}{d}": _ABL16_ARGS for v in (
+    "abl16": ("abl16.cu", {f"abl16_{v}": _ABL16_ARGS for v in (
         "full", "noexp", "noscan", "nomxu", "notrans", "minimal", "dyn",
-        "prodbody") for d in ("", "_group")}),
+        "prodbody")}),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

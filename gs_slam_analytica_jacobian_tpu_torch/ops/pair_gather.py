@@ -17,12 +17,12 @@ contiguous per gaussian in emission order.
   emission order, so the work is the live pairs' and not the capacity's,
   and two runs on one input give the same bits. They take float32 at any
   strides and raise on anything else; nothing falls back. Each counts its
-  launches (``.launches``) and the trace counters
-  ``render.pair_gather_kernel`` and ``render.segment_reduce_kernel``.
+  launches (``.launches``).
 
 The kernels replace no ``pl.pallas_call`` site (the JAX package writes the
-stage in plain ``jnp``), so their counters are not in ``ops/launches.py``
-``COUNTERS``.
+stage in plain ``jnp``); their counters are in ``ops/launches.py``
+``COUNTERS`` all the same, and ``utils/trace.py`` ``snapshot()`` reports
+them as ``launch.pair_gather_fwd`` and ``launch.segment_reduce_fwd``.
 """
 
 from __future__ import annotations
@@ -33,7 +33,6 @@ import torch
 
 from . import _build
 from .binning2 import PairPlan
-from ..utils import trace
 
 
 def _vec(x: torch.Tensor) -> int:
@@ -68,8 +67,7 @@ def _ptr(x: torch.Tensor):
 
 def pair_gather_fwd(table: torch.Tensor, plan: PairPlan) -> torch.Tensor:
     """Launch the gather kernel: (N, F) float32 ``table`` at any strides ->
-    (B_al, F) contiguous rows, zero at dead slots. Counts ``launches`` and
-    the trace counter ``render.pair_gather_kernel``."""
+    (B_al, F) contiguous rows, zero at dead slots. Counts ``launches``."""
     _check(table, "table")
     b_al, f = plan.pair_gid1.shape[0], table.shape[1]
     feat = torch.empty(b_al, f, dtype=torch.float32, device=table.device)
@@ -77,7 +75,6 @@ def pair_gather_fwd(table: torch.Tensor, plan: PairPlan) -> torch.Tensor:
             _ptr(plan.pair_gid1), _ptr(table), *table.stride(), _ptr(feat),
             b_al, f, _vec(table))
     pair_gather_fwd.launches += 1
-    trace.count("render.pair_gather_kernel")
     return feat
 
 
@@ -87,8 +84,7 @@ pair_gather_fwd.launches = 0
 def segment_reduce_fwd(values: torch.Tensor, plan: PairPlan) -> torch.Tensor:
     """Launch the segment-sum kernel: (B_al, F) float32 ``values`` in
     aligned order, at any strides -> (N, F) contiguous per-gaussian sums.
-    Counts ``launches`` and the trace counter
-    ``render.segment_reduce_kernel``."""
+    Counts ``launches``."""
     _check(values, "values")
     n, f = plan.seg_start.shape[0], values.shape[1]
     b_al, capacity = plan.pair_gid1.shape[0], plan.aligned_of_em.shape[0]
@@ -101,7 +97,6 @@ def segment_reduce_fwd(values: torch.Tensor, plan: PairPlan) -> torch.Tensor:
             _ptr(plan.aligned_of_em), _ptr(values), *values.stride(),
             _ptr(out), n, f, capacity, b_al, _vec(values))
     segment_reduce_fwd.launches += 1
-    trace.count("render.segment_reduce_kernel")
     return out
 
 

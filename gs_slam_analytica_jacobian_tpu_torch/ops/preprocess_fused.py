@@ -29,11 +29,11 @@ the kernel on the card). Its pose chain (the 6 x 12 Jacobian of
 kernel takes the same derivative in forward mode.
 
 This kernel replaces no ``pl.pallas_call`` site: the JAX package writes
-the stage in plain ``jnp``, which XLA fuses on the TPU. So its launch
-counters (``preprocess_fwd.launches``, ``preprocess_bwd.launches``) are
-not in ``ops/launches.py`` ``COUNTERS``, which holds the Pallas sites'
-kernels; a traced run sees each forward launch as the trace counter
-``render.preprocess_kernel``. ``renderer_ref.render`` (the dense oracle)
+the stage in plain ``jnp``, which XLA fuses on the TPU. Its launch
+counters (``preprocess_fwd.launches``, ``preprocess_bwd.launches``) are in
+``ops/launches.py`` ``COUNTERS`` beside the compositing kernels', and
+``utils/trace.py`` ``snapshot()`` reports them as ``launch.preprocess_fwd``
+and ``launch.preprocess_bwd``. ``renderer_ref.render`` (the dense oracle)
 and ``renderer_tiled.render`` (the JAX-mirrored signature over cov6)
 keep calling ``gaussian_math.preprocess``.
 """
@@ -52,7 +52,6 @@ from .camera_math import projection_matrix
 from .gaussian_math import Preprocessed, build_cov3d, preprocess
 from .lie import quat_to_rotmat, se3_exp
 from .renderer_tiled import mask_active, pack_table
-from ..utils import trace
 
 # the raw map parameters the kernels read, in the order the C entries and
 # the autograd function take them
@@ -168,8 +167,7 @@ def preprocess_fwd(params: Sequence[torch.Tensor], sh_degree: int, cam,
                    low_pass: float = 0.3) -> FusedOut:
     """Launch the forward kernel on the map's raw parameters (in
     ``PREP_PARAMS`` order) at ``cam`` (its ``R``, ``t`` on the device) and
-    the pose twist ``tau`` (None: zero). Counts ``launches`` and the trace
-    counter ``render.preprocess_kernel``."""
+    the pose twist ``tau`` (None: zero). Counts ``launches``."""
     _check(params, sh_degree, cam, tau, mean2d_offset, active)
     xyz, scaling, _, _, _, frest = params
     n, dev = xyz.shape[0], xyz.device
@@ -191,7 +189,6 @@ def preprocess_fwd(params: Sequence[torch.Tensor], sh_degree: int, cam,
     if err != 0:
         raise RuntimeError(f"preprocess_fwd launch failed: CUDA error {err}")
     preprocess_fwd.launches += 1
-    trace.count("render.preprocess_kernel")
     return out
 
 

@@ -17,10 +17,7 @@ It is the 32x32 forward's sub-tile body (``csrc/subtile_fwd.cuh``) on a
 conservative block test of ``csrc/subtile_cull.cuh``, bulk asynchronous
 staging, n_touched stored once per pair without atomics (a 16-px pair
 belongs to one tile); ``plain_walk(tile=16, cull=True)`` walks only the
-cells it keeps and ``subtile_cells(tile=16)`` counts them. The
-one-thread-per-pixel B3 it replaced (``csrc/tile_kernel16_fwd.cu``) stays
-as the yardstick wrapper ``composite16_fwd_walk``, launched by nothing on
-a path.
+cells it keeps and ``subtile_cells(tile=16)`` counts them.
 
 The backward kernel (``csrc/tile16_bwd_subtile.cu``, wrapper
 ``composite16_bwd``, B4) replaces ``make_backward_kernel16``
@@ -30,9 +27,7 @@ runs the 32x32 backward's sub-tile design on a 16x16 tile (an 8x4 pixel
 block per warp, the conservative block test of ``csrc/subtile_cull.cuh``,
 bulk asynchronous staging, no cluster: a 16-px pair belongs to one tile);
 ``plain_bwd_walk(tile=16, cull=True)`` walks only the cells it keeps and
-``subtile_cells(tile=16)`` counts them. The one-thread-per-pixel B4 it
-replaced (``csrc/tile_kernel16_bwd.cu``) stays as the yardstick wrapper
-``composite16_bwd_walk``, launched by nothing on a path.
+``subtile_cells(tile=16)`` counts them.
 
 They compute what the 32x32 kernels compute (the per-pixel semantics of
 ops/tile_kernel2.py) on the 16-px plan: tile t = ty * (2 n_gx) + tx of
@@ -112,28 +107,6 @@ def composite16_fwd_ntouch(feat: torch.Tensor, ranges: torch.Tensor,
 composite16_fwd_ntouch.launches = 0
 
 
-def composite16_fwd_walk(feat: torch.Tensor, ranges: torch.Tensor,
-                         n_gx: int, n_gy: int, W: int, H: int,
-                         with_ntouch: bool = False,
-                         nt_weight: bool = False) -> Composite2Out:
-    """The B3 / B3' of the one-thread-per-pixel design that the sub-tile
-    kernel replaced (``csrc/tile_kernel16_fwd.cu``, C entry
-    ``composite16_fwd_walk``): a yardstick timed beside
-    ``composite16_fwd`` / ``composite16_fwd_ntouch`` on the same plans,
-    launched by no path."""
-    _check(feat, ranges, 2 * n_gx, 2 * n_gy)
-    if feat.device.type == "cpu":
-        return composite16_plain(feat, ranges, n_gx, n_gy, W, H,
-                                 with_ntouch=with_ntouch, nt_weight=nt_weight)
-    out = launch_fwd("tile_kernel16_fwd", feat, ranges, 2 * n_gx, 2 * n_gy,
-                     W, H, with_ntouch, nt_weight, "composite16_fwd_walk")
-    composite16_fwd_walk.launches += 1
-    return out
-
-
-composite16_fwd_walk.launches = 0
-
-
 def composite16_bwd(feat: torch.Tensor, ranges: torch.Tensor,
                     color_sum: torch.Tensor, depth_sum: torch.Tensor,
                     final_T: torch.Tensor, d_color: torch.Tensor,
@@ -156,32 +129,6 @@ def composite16_bwd(feat: torch.Tensor, ranges: torch.Tensor,
 
 
 composite16_bwd.launches = 0
-
-
-def composite16_bwd_walk(feat: torch.Tensor, ranges: torch.Tensor,
-                         color_sum: torch.Tensor, depth_sum: torch.Tensor,
-                         final_T: torch.Tensor, d_color: torch.Tensor,
-                         d_depth: torch.Tensor, d_T: torch.Tensor, n_gx: int,
-                         n_gy: int, W: int, H: int) -> torch.Tensor:
-    """The B4 of the one-thread-per-pixel design that the sub-tile kernel
-    replaced (``csrc/tile_kernel16_bwd.cu``, C entry
-    ``composite16_bwd_walk``): a yardstick timed beside ``composite16_bwd``
-    on the same plans, launched by no path."""
-    _check(feat, ranges, 2 * n_gx, 2 * n_gy)
-    _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
-                  final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
-    if feat.device.type == "cpu":
-        return composite16_bwd_plain(feat, ranges, color_sum, depth_sum,
-                                     final_T, d_color, d_depth, d_T, n_gx,
-                                     n_gy, W, H)
-    dfeat = launch_bwd("tile_kernel16_bwd", feat, ranges, color_sum,
-                       depth_sum, final_T, d_color, d_depth, d_T, 2 * n_gx,
-                       2 * n_gy, W, H, "composite16_bwd_walk")
-    composite16_bwd_walk.launches += 1
-    return dfeat
-
-
-composite16_bwd_walk.launches = 0
 
 
 def composite16(feat, ranges, n_gx, n_gy, W, H, with_ntouch=True,

@@ -24,11 +24,7 @@ the conservative block test ``block_keep_plain`` (the kernels'
 ``csrc/subtile_cull.cuh``, same operations) finds alpha < 1/255 at every
 pixel of the block; ``plain_walk(cull=True)`` and
 ``plain_bwd_walk(cull=True)`` walk only the kept cells, and
-``subtile_cells`` counts the cells the kernels evaluate. The one-CTA-per-
-tile f32 kernels they replaced (``csrc/tile_kernel2_fwd.cu``,
-``csrc/tile_kernel2_bwd.cu``) stay as the yardstick wrappers
-``composite32_fwd_tile1024`` and ``composite32_bwd_tile1024``, counted on
-their own and launched by nothing on a path.
+``subtile_cells`` counts the cells the kernels evaluate.
 
 Each wrapper takes ``bf16``: the reference's bfloat16 bodies of the same
 three call sites (``_chunk_terms(bf16=True)``, tile_kernel2.py:160-175,
@@ -37,17 +33,15 @@ and the backward's bf16 branch, :488-508), which the trackers run under
 (``csrc/subtile_fwd.cuh``, C entry ``composite32_fwd_bf16`` of
 ``csrc/tile32_fwd_subtile.cu``) with the bfloat16 falloff and a block
 test whose margin covers its rounding (``block_keep_plain(...,
-bf16=True)``); the one-CTA-per-tile bf16 forward it replaced stays as the
-yardstick ``composite32_fwd_bf16_tile1024``. The bf16 backward is the
-f32 backward's sub-tile body with the same falloff and margin (C entry
-``composite32_bwd_bf16`` of ``csrc/tile32_bwd_subtile.cu``); the
-one-CTA-per-tile bf16 backward it replaced stays as the yardstick
-``composite32_bwd_bf16_tile1024``. The falloff is evaluated in bfloat16
+bf16=True)``). The bf16 backward is the f32 backward's sub-tile body
+with the same falloff and margin (C entry ``composite32_bwd_bf16`` of
+``csrc/tile32_bwd_subtile.cu``). The falloff is evaluated in bfloat16
 from f32 pixel deltas, every product and sum rounded to bfloat16 in the
 expression's order, the power clamped to <= 0, ``opa * exp(power)``
-rounded once more and widened; transmittance and the sums stay f32. The backward rounds G, dx, dy and dL/dG to
-bfloat16 and forms the quadratic-form products in bfloat16, each widened
-before its f32 pixel sum. The bf16 kernels are separate C entries with
+rounded once more and widened; transmittance and the sums stay f32. The
+backward rounds G, dx, dy and dL/dG to bfloat16 and forms the
+quadratic-form products in bfloat16, each widened before its f32 pixel
+sum. The bf16 kernels are separate C entries with
 launch counters of their own (``launches_bf16``); the plain versions take
 ``bf16`` too and round exactly where the kernels do (torch rounds after
 every bfloat16 operation, as ``__hmul_rn``/``__hadd_rn``/``__hsub_rn``
@@ -73,10 +67,7 @@ backward's sub-tile body in ``csrc/tile32_bwd_subtile.cu``: per-warp
 survivor lists and power blocks as in the mxu forward, the mxu margin,
 the linear transmittance; under both flags bf16's rounded products),
 counted in ``launches_mxu`` (the backward under both flags in
-``launches_bf16_mxu``); the one-CTA-per-tile mxu forward and backwards
-the sub-tile ones replaced stay as the yardsticks
-``composite32_fwd_mxu_tile1024``, ``composite32_bwd_mxu_tile1024`` and
-``composite32_bwd_bf16_mxu_tile1024``. Their plain versions evaluate
+``launches_bf16_mxu``). Their plain versions evaluate
 the power with ``torch.matmul`` at float32 matmul precision "highest"
 (never TF32; they raise otherwise), as the reference's dot runs at
 ``Precision.HIGHEST``.
@@ -88,7 +79,7 @@ its ``launches`` attribute. On a CUDA tensor it launches the kernel or
 raises; only a tensor on the CPU takes the plain version
 (``composite32_plain``, ``composite32_bwd_plain``), which is vectorized
 over tiles x pixels and loops over pair chunks. The plain versions are
-the kernels' references, not a yardstick of speed.
+the kernels' references, not a measure of speed.
 
 ``composite32`` is differentiable in ``feat`` (a ``torch.autograd
 .Function``): its forward runs a forward wrapper, its backward
@@ -692,73 +683,6 @@ composite32_fwd_ntouch.launches_bf16 = 0
 composite32_fwd_ntouch.launches_mxu = 0
 
 
-def composite32_fwd_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
-                             n_tx: int, n_ty: int, W: int, H: int,
-                             with_ntouch: bool = False,
-                             nt_weight: bool = False) -> Composite2Out:
-    """The f32 forward of the one-CTA-per-tile design that the sub-tile
-    kernel replaced (``csrc/tile_kernel2_fwd.cu``, C entry
-    ``composite32_fwd_tile1024``): a yardstick timed beside
-    ``composite32_fwd`` on the same plans, launched by no path."""
-    _check(feat, ranges, n_tx, n_ty)
-    if feat.device.type == "cpu":
-        return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
-                                 with_ntouch=with_ntouch, nt_weight=nt_weight)
-    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
-                     with_ntouch, nt_weight, "composite32_fwd_tile1024")
-    composite32_fwd_tile1024.launches += 1
-    return out
-
-
-composite32_fwd_tile1024.launches = 0
-
-
-def composite32_fwd_bf16_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
-                                  n_tx: int, n_ty: int, W: int, H: int,
-                                  with_ntouch: bool = False,
-                                  nt_weight: bool = False) -> Composite2Out:
-    """The bf16 forward of the one-CTA-per-tile design that the sub-tile
-    kernel replaced (``csrc/tile_kernel2_fwd.cu``, C entry
-    ``composite32_fwd_bf16_tile1024``): a yardstick timed beside
-    ``composite32_fwd(bf16=True)`` on the same plans, launched by no
-    path."""
-    _check(feat, ranges, n_tx, n_ty)
-    if feat.device.type == "cpu":
-        return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
-                                 with_ntouch=with_ntouch, nt_weight=nt_weight,
-                                 bf16=True)
-    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
-                     with_ntouch, nt_weight, "composite32_fwd_bf16_tile1024")
-    composite32_fwd_bf16_tile1024.launches += 1
-    return out
-
-
-composite32_fwd_bf16_tile1024.launches = 0
-
-
-def composite32_fwd_mxu_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
-                                 n_tx: int, n_ty: int, W: int, H: int,
-                                 with_ntouch: bool = False,
-                                 nt_weight: bool = False) -> Composite2Out:
-    """The mxu forward of the one-CTA-per-tile design that the sub-tile
-    mxu kernel replaced (``csrc/tile_kernel2_fwd.cu``, C entry
-    ``composite32_fwd_mxu_tile1024``): a yardstick timed beside
-    ``composite32_fwd(mxu=True)`` on the same plans, launched by no
-    path."""
-    _check(feat, ranges, n_tx, n_ty)
-    if feat.device.type == "cpu":
-        return composite32_plain(feat, ranges, n_tx, n_ty, W, H,
-                                 with_ntouch=with_ntouch, nt_weight=nt_weight,
-                                 mxu=True)
-    out = launch_fwd("tile_kernel2_fwd", feat, ranges, n_tx, n_ty, W, H,
-                     with_ntouch, nt_weight, "composite32_fwd_mxu_tile1024")
-    composite32_fwd_mxu_tile1024.launches += 1
-    return out
-
-
-composite32_fwd_mxu_tile1024.launches = 0
-
-
 def mxu_power_tile(feat: torch.Tensor, tx: int, ty: int) -> torch.Tensor:
     """The tensor-core falloff of ``csrc/mxu_falloff.cuh`` alone, for a
     check on the card: the unclamped power (128, 1024) of one chunk of at
@@ -773,7 +697,7 @@ def mxu_power_tile(feat: torch.Tensor, tx: int, ty: int) -> torch.Tensor:
         raise ValueError("feat must be (n <= 128, 16) float32, contiguous "
                          "and 16-byte aligned")
     out = torch.empty(K, P, dtype=torch.float32, device=feat.device)
-    fn = _build.entry("tile_kernel2_fwd", "mxu_power_tile")
+    fn = _build.entry("tile32_fwd_subtile_mxu", "mxu_power_tile")
     with torch.cuda.device(feat.device):
         stream = torch.cuda.current_stream(feat.device).cuda_stream
         err = fn(ctypes.c_void_p(feat.data_ptr()), feat.shape[0], tx, ty,
@@ -1023,100 +947,6 @@ def composite32_bwd(feat: torch.Tensor, ranges: torch.Tensor,
     return dfeat
 
 
-def _bwd_tile1024(wrapper, entry: str, bf16: bool, mxu: bool, feat, ranges,
-                  color_sum, depth_sum, final_T, d_color, d_depth, d_T,
-                  n_tx: int, n_ty: int, W: int, H: int) -> torch.Tensor:
-    """A yardstick backward of the one-CTA-per-tile design: C entry
-    ``entry`` of ``csrc/tile_kernel2_bwd.cu``, counted in ``wrapper``'s
-    ``launches``; the plain version of the ``bf16`` / ``mxu`` body on the
-    CPU."""
-    _check(feat, ranges, n_tx, n_ty)
-    _check_planes(feat, W, H, color_sum=color_sum, depth_sum=depth_sum,
-                  final_T=final_T, d_color=d_color, d_depth=d_depth, d_T=d_T)
-    if feat.device.type == "cpu":
-        return composite32_bwd_plain(feat, ranges, color_sum, depth_sum,
-                                     final_T, d_color, d_depth, d_T, n_tx,
-                                     n_ty, W, H, bf16=bf16, mxu=mxu)
-    dfeat = launch_bwd("tile_kernel2_bwd", feat, ranges, color_sum,
-                       depth_sum, final_T, d_color, d_depth, d_T, n_tx, n_ty,
-                       W, H, entry)
-    wrapper.launches += 1
-    return dfeat
-
-
-def composite32_bwd_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
-                             color_sum: torch.Tensor, depth_sum: torch.Tensor,
-                             final_T: torch.Tensor, d_color: torch.Tensor,
-                             d_depth: torch.Tensor, d_T: torch.Tensor,
-                             n_tx: int, n_ty: int, W: int, H: int
-                             ) -> torch.Tensor:
-    """The f32 backward of the one-CTA-per-tile design that the sub-tile
-    kernel replaced (``csrc/tile_kernel2_bwd.cu``, C entry
-    ``composite32_bwd_tile1024``): a yardstick timed beside
-    ``composite32_bwd`` on the same plans, launched by no path."""
-    return _bwd_tile1024(composite32_bwd_tile1024, "composite32_bwd_tile1024",
-                         False, False, feat, ranges, color_sum, depth_sum,
-                         final_T, d_color, d_depth, d_T, n_tx, n_ty, W, H)
-
-
-def composite32_bwd_bf16_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
-                                  color_sum: torch.Tensor,
-                                  depth_sum: torch.Tensor,
-                                  final_T: torch.Tensor,
-                                  d_color: torch.Tensor,
-                                  d_depth: torch.Tensor, d_T: torch.Tensor,
-                                  n_tx: int, n_ty: int, W: int, H: int
-                                  ) -> torch.Tensor:
-    """The bf16 backward of the one-CTA-per-tile design that the sub-tile
-    kernel replaced (``csrc/tile_kernel2_bwd.cu``, C entry
-    ``composite32_bwd_bf16_tile1024``): a yardstick timed beside
-    ``composite32_bwd(bf16=True)`` on the same plans, launched by no
-    path."""
-    return _bwd_tile1024(composite32_bwd_bf16_tile1024,
-                         "composite32_bwd_bf16_tile1024", True, False, feat,
-                         ranges, color_sum, depth_sum, final_T, d_color,
-                         d_depth, d_T, n_tx, n_ty, W, H)
-
-
-def composite32_bwd_mxu_tile1024(feat: torch.Tensor, ranges: torch.Tensor,
-                                 color_sum: torch.Tensor,
-                                 depth_sum: torch.Tensor,
-                                 final_T: torch.Tensor, d_color: torch.Tensor,
-                                 d_depth: torch.Tensor, d_T: torch.Tensor,
-                                 n_tx: int, n_ty: int, W: int, H: int
-                                 ) -> torch.Tensor:
-    """The mxu backward of the one-CTA-per-tile design that the sub-tile
-    kernel replaced (``csrc/tile_kernel2_bwd.cu``, C entry
-    ``composite32_bwd_mxu_tile1024``): a yardstick timed beside
-    ``composite32_bwd(mxu=True)`` on the same plans, launched by no
-    path."""
-    return _bwd_tile1024(composite32_bwd_mxu_tile1024,
-                         "composite32_bwd_mxu_tile1024", False, True, feat,
-                         ranges, color_sum, depth_sum, final_T, d_color,
-                         d_depth, d_T, n_tx, n_ty, W, H)
-
-
-def composite32_bwd_bf16_mxu_tile1024(feat: torch.Tensor,
-                                      ranges: torch.Tensor,
-                                      color_sum: torch.Tensor,
-                                      depth_sum: torch.Tensor,
-                                      final_T: torch.Tensor,
-                                      d_color: torch.Tensor,
-                                      d_depth: torch.Tensor,
-                                      d_T: torch.Tensor, n_tx: int,
-                                      n_ty: int, W: int, H: int
-                                      ) -> torch.Tensor:
-    """The mxu backward with the bfloat16 products of the one-CTA-per-tile
-    design that the sub-tile kernel replaced (``csrc/tile_kernel2_bwd.cu``,
-    C entry ``composite32_bwd_bf16_mxu_tile1024``): a yardstick timed
-    beside ``composite32_bwd(bf16=True, mxu=True)`` on the same plans,
-    launched by no path."""
-    return _bwd_tile1024(composite32_bwd_bf16_mxu_tile1024,
-                         "composite32_bwd_bf16_mxu_tile1024", True, True,
-                         feat, ranges, color_sum, depth_sum, final_T,
-                         d_color, d_depth, d_T, n_tx, n_ty, W, H)
-
-
 def launch_bwd(lib: str, feat, ranges, color_sum, depth_sum, final_T,
                d_color, d_depth, d_T, n_tx, n_ty, W, H,
                entry: str) -> torch.Tensor:
@@ -1146,10 +976,6 @@ composite32_bwd.launches = 0
 composite32_bwd.launches_bf16 = 0
 composite32_bwd.launches_mxu = 0
 composite32_bwd.launches_bf16_mxu = 0
-composite32_bwd_tile1024.launches = 0
-composite32_bwd_bf16_tile1024.launches = 0
-composite32_bwd_mxu_tile1024.launches = 0
-composite32_bwd_bf16_mxu_tile1024.launches = 0
 
 
 class CompositeFn(torch.autograd.Function):

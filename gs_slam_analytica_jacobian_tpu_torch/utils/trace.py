@@ -19,7 +19,7 @@ dicts, and forgets them.
 
 ``count(name, n)`` adds to a process-wide counter, whether or not
 recording is on; ``snapshot()`` reads the counters together with the
-compositing kernels' launch counts (``ops/launches.py``, under
+hand-written kernels' launch counts (``ops/launches.py``, under
 ``launch.<name>``).
 
 Nothing here reads a device value, synchronises or allocates on the
@@ -116,7 +116,7 @@ def count(name: str, n: int = 1) -> None:
 
 
 def snapshot() -> Dict[str, int]:
-    """The counters, and each compositing launch counter as
+    """The counters, and each kernel launch counter as
     ``launch.<name>``."""
     from ..ops import launches
     with _lock:

@@ -124,20 +124,20 @@ def test_plain_matches_script_kernel_admitting_plan(ref, variant):
 
 
 @pytest.mark.parametrize("variant", abl16.VARIANTS)
-def test_group_design_on_cpu_is_the_plain_version(variant):
-    """``design="group"`` (on a GPU the yardstick's C entries,
-    ``abl16_<variant>_group``) takes the same plain version on CPU
-    tensors as the default design and counts no launch of either; an
-    unknown design raises."""
+def test_cpu_run_is_the_plain_version(variant):
+    """On CPU tensors ``run`` is the plain version ``run_plain``, whether
+    the variant is passed by position or by name, and counts no launch;
+    an unknown variant raises."""
     f, r = (torch.as_tensor(x) for x in _admitting_plan())
-    before = (dict(abl16.run.launches), dict(abl16.run.launches_group))
-    got = abl16.run(f, r, N_GX, N_GY, W, H, 2, variant, design="group")
-    assert torch.equal(got, abl16.run(f, r, N_GX, N_GY, W, H, 2, variant))
+    before = dict(abl16.run.launches)
+    got = abl16.run(f, r, N_GX, N_GY, W, H, 2, variant)
+    assert torch.equal(got, abl16.run(f, r, N_GX, N_GY, W, H, nc=2,
+                                      variant=variant))
     assert torch.equal(got, abl16.run_plain(f, r, N_GX, N_GY, W, H, 2,
                                             variant))
-    assert (abl16.run.launches, abl16.run.launches_group) == before
+    assert abl16.run.launches == before
     with pytest.raises(ValueError):
-        abl16.run(f, r, N_GX, N_GY, W, H, 2, variant, design="tile")
+        abl16.run(f, r, N_GX, N_GY, W, H, 2, variant + "_group")
 
 
 def test_bound_and_chunks():

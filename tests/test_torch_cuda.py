@@ -408,23 +408,17 @@ def test_mxu_power_tile_matches_f32(cuda):
     assert bool((d <= 1e-4 + 2.0 ** -22 * ref.abs()).all())
 
 
-@pytest.mark.parametrize("design", ["subtile", "group"])
 @pytest.mark.parametrize("variant", ["full", "noexp", "noscan", "nomxu",
                                      "notrans", "minimal", "dyn",
                                      "prodbody"])
-def test_abl16_kernel_matches_plain(cuda, variant, design):
-    """B5: each variant's kernel (one CTA per subtile, and the group
-    design kept as its yardstick) against its plain version on the
-    script's plan and on a plan whose rect16 columns admit every cell,
-    1e-5 relative; the two designs give the same output bit for bit (the
-    same arithmetic and sum order). The admitting plan is also run with
-    one more column in feat (B odd) and from a copy of feat 4 bytes past
-    a 16-byte boundary: the subtile kernel stages those with 4-byte
-    copies."""
+def test_abl16_kernel_matches_plain(cuda, variant):
+    """B5: each variant's kernel (one CTA per subtile) against its plain
+    version on the script's plan and on a plan whose rect16 columns admit
+    every cell, 1e-5 relative. The admitting plan is also run with one
+    more column in feat (B odd) and from a copy of feat 4 bytes past a
+    16-byte boundary: the kernel stages those with 4-byte copies."""
     from gs_slam_analytica_jacobian_tpu_torch.scripts import abl16
-    counts = (abl16.run.launches_group if design == "group"
-              else abl16.run.launches)
-    other = "subtile" if design == "group" else "group"
+    counts = abl16.run.launches
     for make, nc in ((abl16.make_inputs, 1), (abl16.make_admitting_inputs,
                                               2)):
         feat, ranges = make(4, 3, nc, device=cuda)
@@ -437,16 +431,12 @@ def test_abl16_kernel_matches_plain(cuda, variant, design):
             assert cases[-1].data_ptr() % 16 == 4
         for f in cases:
             before = counts[variant]
-            got = abl16.run(f, ranges, 4, 3, 128, 96, nc, variant,
-                            design=design)
-            twin = abl16.run(f, ranges, 4, 3, 128, 96, nc, variant,
-                             design=other)
+            got = abl16.run(f, ranges, 4, 3, 128, 96, nc, variant)
             ref = abl16.run_plain(f, ranges, 4, 3, 128, 96, nc, variant)
             torch.cuda.synchronize()
             assert counts[variant] == before + 1
             assert bool(torch.isfinite(got).all())
             assert float(((got - ref).abs() / ref.abs()).max()) <= 1e-5
-            assert torch.equal(got, twin)
 
 
 def _subtile_plan(cuda, tile16=False, at_threshold=True):
@@ -497,24 +487,20 @@ def _subtile_plan(cuda, tile16=False, at_threshold=True):
                          [(False, False), (True, False), (True, True)])
 def test_subtile_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
                                                     nt_weight):
-    """B1' / B1 (the sub-tile kernel) and PR 5's design (the tile1024
-    yardstick) bit for bit against the plain version."""
+    """B1' / B1 (the sub-tile kernel) bit for bit against the plain
+    version."""
     feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda)
     ref = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
                                nt_weight)
     wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
-    before = (wrapper.launches, tk.composite32_fwd_tile1024.launches)
+    before = wrapper.launches
     got = (tk.composite32_fwd_ntouch(feat, ranges, n_tx, n_ty, W, H,
                                      nt_weight) if with_ntouch
            else tk.composite32_fwd(feat, ranges, n_tx, n_ty, W, H))
-    old = tk.composite32_fwd_tile1024(feat, ranges, n_tx, n_ty, W, H,
-                                      with_ntouch, nt_weight)
     torch.cuda.synchronize()
-    assert (wrapper.launches, tk.composite32_fwd_tile1024.launches) == (
-        before[0] + 1, before[1] + 1)
-    for a, b, c in zip(got, ref, old):
+    assert wrapper.launches == before + 1
+    for a, b in zip(got, ref):
         assert torch.equal(a, b)
-        assert torch.equal(c, b)
     if with_ntouch:
         assert float(got.n_touched_pairs.sum()) > 0
 
@@ -534,7 +520,6 @@ def test_subtile_backward_matches_plain_on_hard_plan(cuda):
     before = tk.composite32_bwd.launches
     got = tk.composite32_bwd(*args)
     again = tk.composite32_bwd(*args)
-    old = tk.composite32_bwd_tile1024(*args)
     ref = tk.composite32_bwd_plain(*args)
     torch.cuda.synchronize()
     assert tk.composite32_bwd.launches == before + 2
@@ -544,17 +529,15 @@ def test_subtile_backward_matches_plain_on_hard_plan(cuda):
     for col in range(10):
         scale = float(ref[:, col].abs().max())
         assert scale > 0, col
-        for rows in (got, old):
-            assert float((rows[:, col] - ref[:, col]).abs().max()) \
-                <= 1e-5 * scale, col
+        assert float((got[:, col] - ref[:, col]).abs().max()) \
+            <= 1e-5 * scale, col
     assert torch.equal(got.any(dim=1), ref.any(dim=1))
 
 
 def test_subtile_backward16_matches_plain_on_hard_plan(cuda):
-    """B4 (the sub-tile kernel on the 16-px plan) and the one-thread-per-
-    pixel design it replaced (the composite16_bwd_walk yardstick) against
-    the plain version within 1e-5 of each column's max, the same zero rows, and bit for bit the same
-    rows from two launches of B4."""
+    """B4 (the sub-tile kernel on the 16-px plan) against the plain
+    version within 1e-5 of each column's max, the same zero rows, and bit
+    for bit the same rows from two launches."""
     feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda, tile16=True)
     n_gx, n_gy = n_tx // 2, n_ty // 2
     fwd = tk16.composite16_plain(feat, ranges, n_gx, n_gy, W, H,
@@ -563,25 +546,20 @@ def test_subtile_backward16_matches_plain_on_hard_plan(cuda):
     cot = torch.randn(5, H, W, generator=g, device=cuda)
     args = (feat, ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
             cot[0:3], cot[3], cot[4], n_gx, n_gy, W, H)
-    before = (tk16.composite16_bwd.launches,
-              tk16.composite16_bwd_walk.launches)
+    before = tk16.composite16_bwd.launches
     got = tk16.composite16_bwd(*args)
     again = tk16.composite16_bwd(*args)
-    old = tk16.composite16_bwd_walk(*args)
     ref = tk16.composite16_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert (tk16.composite16_bwd.launches,
-            tk16.composite16_bwd_walk.launches) == (before[0] + 2,
-                                                    before[1] + 1)
+    assert tk16.composite16_bwd.launches == before + 2
     assert torch.equal(got, again)
     assert bool(torch.isfinite(got).all())
     assert not bool(got[:, 10:].any())
     for col in range(10):
         scale = float(ref[:, col].abs().max())
         assert scale > 0, col
-        for rows in (got, old):
-            assert float((rows[:, col] - ref[:, col]).abs().max()) \
-                <= 1e-5 * scale, col
+        assert float((got[:, col] - ref[:, col]).abs().max()) \
+            <= 1e-5 * scale, col
     assert torch.equal(got.any(dim=1), ref.any(dim=1))
 
 
@@ -591,10 +569,7 @@ def test_subtile_bf16_mxu_backward_matches_plain_on_hard_plan(cuda, bf16,
                                                              mxu):
     """B2-bf16, B2-mxu and B2-bf16-mxu (B2's sub-tile body with the
     bfloat16 falloff and its margin, the tensor-core falloff and the mxu
-    margin, or that falloff with the bfloat16 products) and the
-    one-CTA-per-tile bodies they replaced (the
-    composite32_bwd_bf16_tile1024 / composite32_bwd_mxu_tile1024 /
-    composite32_bwd_bf16_mxu_tile1024 yardsticks) against the plain
+    margin, or that falloff with the bfloat16 products) against the plain
     version of the same body: each column within 1e-5 (bf16,
     chip_smoke.py BWD_COL_TOL), 1e-3 (mxu, MXU_BWD_COL_TOL) or 2e-3 (both,
     MXU_BF16_BWD_COL_TOL) of its max, and bit for bit the same rows from
@@ -610,46 +585,38 @@ def test_subtile_bf16_mxu_backward_matches_plain_on_hard_plan(cuda, bf16,
     cot = torch.randn(5, H, W, generator=g, device=cuda)
     args = (feat, ranges, fwd.color_sum, fwd.depth_sum, fwd.final_T,
             cot[0:3], cot[3], cot[4], n_tx, n_ty, W, H)
-    yardstick, attr = {
-        (True, False): (tk.composite32_bwd_bf16_tile1024, "launches_bf16"),
-        (False, True): (tk.composite32_bwd_mxu_tile1024, "launches_mxu"),
-        (True, True): (tk.composite32_bwd_bf16_mxu_tile1024,
-                       "launches_bf16_mxu")}[(bf16, mxu)]
-    before = (getattr(tk.composite32_bwd, attr), yardstick.launches)
+    attr = {(True, False): "launches_bf16", (False, True): "launches_mxu",
+            (True, True): "launches_bf16_mxu"}[(bf16, mxu)]
+    before = getattr(tk.composite32_bwd, attr)
     got = tk.composite32_bwd(*args, bf16=bf16, mxu=mxu)
     again = tk.composite32_bwd(*args, bf16=bf16, mxu=mxu)
-    old = yardstick(*args)
     ref = tk.composite32_bwd_plain(*args, bf16=bf16, mxu=mxu)
     torch.cuda.synchronize()
-    assert (getattr(tk.composite32_bwd, attr), yardstick.launches) == (
-        before[0] + 2, before[1] + 1)
+    assert getattr(tk.composite32_bwd, attr) == before + 2
     assert torch.equal(got, again)
     tol = (2e-3 if bf16 else 1e-3) if mxu else 1e-5
-    for rows in (got, old):
-        assert bool(torch.isfinite(rows).all())
-        assert not bool(rows[:, 10:].any())
-        for col in range(10):
-            scale = float(ref[:, col].abs().max())
-            assert scale > 0, col
-            err = float((rows[:, col] - ref[:, col]).abs().max())
-            assert err <= tol * scale, (col, err / scale)
-        if not mxu:
-            assert torch.equal(rows.any(dim=1), ref.any(dim=1))
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[:, 10:].any())
+    for col in range(10):
+        scale = float(ref[:, col].abs().max())
+        assert scale > 0, col
+        err = float((got[:, col] - ref[:, col]).abs().max())
+        assert err <= tol * scale, (col, err / scale)
+    if not mxu:
+        assert torch.equal(got.any(dim=1), ref.any(dim=1))
 
 
 @pytest.mark.parametrize("with_ntouch,nt_weight",
                          [(False, False), (True, False), (True, True)])
 def test_subtile_mxu_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
                                                         nt_weight):
-    """B1'-mxu / B1-mxu (the sub-tile kernel with the mxu margin) and the
-    one-CTA-per-tile design (the composite32_fwd_mxu_tile1024 yardstick)
-    against the plain mxu version under chip_smoke.py's MXU gates (mxu_gate_failure:
-    the values above MXU_IMG_TOL counted over the three planes together,
-    each within MXU_FLIP_TOL, each plane's 99.9th percentile within
-    MXU_P999_TOL); how far the two designs' images lie apart (max and
-    count of differing values) is printed. On the H100 one depth value of
-    this plan's 0.33 million flipped past 5e-3 in both designs (NVIDIA
-    H100 80GB HBM3, 700.00 W): a per-plane count would allow none. The
+    """B1'-mxu / B1-mxu (the sub-tile kernel with the mxu margin) against
+    the plain mxu version under chip_smoke.py's MXU gates
+    (mxu_gate_failure: the values above MXU_IMG_TOL counted over the three
+    planes together, each within MXU_FLIP_TOL, each plane's 99.9th
+    percentile within MXU_P999_TOL). On the H100 one depth value of this
+    plan's 0.33 million flipped past 5e-3 (NVIDIA H100 80GB HBM3,
+    700.00 W): a per-plane count would allow none. The
     rows placed at alpha = 1/255 to an ulp of the f32 power are left out:
     the tensor cores' power and the plain matmul's differ by rounding
     there, which flips such a row's test by design."""
@@ -657,22 +624,14 @@ def test_subtile_mxu_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
     ref = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
                                nt_weight, mxu=True)
     wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
-    before = (wrapper.launches_mxu, tk.composite32_fwd_mxu_tile1024.launches)
+    before = wrapper.launches_mxu
     got = tk.composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
                          nt_weight, mxu=True)
-    old = tk.composite32_fwd_mxu_tile1024(feat, ranges, n_tx, n_ty, W, H,
-                                          with_ntouch, nt_weight)
     torch.cuda.synchronize()
-    assert (wrapper.launches_mxu,
-            tk.composite32_fwd_mxu_tile1024.launches) == (before[0] + 1,
-                                                          before[1] + 1)
+    assert wrapper.launches_mxu == before + 1
     live = int((ranges[:, 1] - ranges[:, 0]).sum())
-    for out in (got, old):
-        assert all(bool(torch.isfinite(x).all()) for x in out)
-        assert mxu_gate_failure(out, ref, live) is None
-    d = torch.cat([(a - b).abs().flatten() for a, b in zip(got, old)])
-    print(f"mxu sub-tile vs tile1024: max {float(d.max()):.3e}, "
-          f"{int((d > 0).sum())} of {d.numel()} values differ")
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    assert mxu_gate_failure(got, ref, live) is None
     if with_ntouch:
         assert float(got.n_touched_pairs.sum()) > 0
 
@@ -682,29 +641,23 @@ def test_subtile_mxu_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
 def test_subtile_bf16_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
                                                          nt_weight):
     """B1'-bf16 / B1-bf16 (the sub-tile kernel with the bfloat16 falloff
-    and its cull margin) and the one-CTA-per-tile design it replaced (the
-    composite32_fwd_bf16_tile1024 yardstick) bit for bit against the plain
-    bf16 version, rows at alpha = 1/255 included; bf16 is applied (the
-    images differ from the f32 kernel's)."""
+    and its cull margin) bit for bit against the plain bf16 version, rows
+    at alpha = 1/255 included; bf16 is applied (the images differ from the
+    f32 kernel's)."""
     feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda)
     ref = tk.composite32_plain(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
                                nt_weight, bf16=True)
     wrapper = tk.composite32_fwd_ntouch if with_ntouch else tk.composite32_fwd
-    before = (wrapper.launches, wrapper.launches_bf16,
-              tk.composite32_fwd_bf16_tile1024.launches)
+    before = (wrapper.launches, wrapper.launches_bf16)
     got = tk.composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
                          nt_weight, bf16=True)
-    old = tk.composite32_fwd_bf16_tile1024(feat, ranges, n_tx, n_ty, W, H,
-                                           with_ntouch, nt_weight)
     f32 = tk.composite32(feat, ranges, n_tx, n_ty, W, H, with_ntouch,
                          nt_weight)
     torch.cuda.synchronize()
-    assert (wrapper.launches, wrapper.launches_bf16,
-            tk.composite32_fwd_bf16_tile1024.launches) == (
-        before[0] + 1, before[1] + 1, before[2] + 1)
-    for a, b, c in zip(got, ref, old):
+    assert (wrapper.launches, wrapper.launches_bf16) == (
+        before[0] + 1, before[1] + 1)
+    for a, b in zip(got, ref):
         assert torch.equal(a, b)
-        assert torch.equal(c, b)
     assert float((got.color_sum - f32.color_sum).abs().max()) > 1e-4
     if with_ntouch:
         assert float(got.n_touched_pairs.sum()) > 0
@@ -715,26 +668,20 @@ def test_subtile_bf16_forward_matches_plain_on_hard_plan(cuda, with_ntouch,
 def test_subtile_forward16_matches_plain_on_hard_plan(cuda, with_ntouch,
                                                       nt_weight):
     """B3' / B3 (the sub-tile kernel on the 16-px plan, n_touched stored
-    without atomics) and the one-thread-per-pixel design it replaced (the
-    composite16_fwd_walk yardstick) bit for bit against the plain
-    version."""
+    without atomics) bit for bit against the plain version."""
     feat, ranges, n_tx, n_ty, W, H = _subtile_plan(cuda, tile16=True)
     n_gx, n_gy = n_tx // 2, n_ty // 2
     ref = tk16.composite16_plain(feat, ranges, n_gx, n_gy, W, H, with_ntouch,
                                  nt_weight)
     wrapper = (tk16.composite16_fwd_ntouch if with_ntouch
                else tk16.composite16_fwd)
-    before = (wrapper.launches, tk16.composite16_fwd_walk.launches)
+    before = wrapper.launches
     got = tk16.composite16(feat, ranges, n_gx, n_gy, W, H, with_ntouch,
                            nt_weight)
-    old = tk16.composite16_fwd_walk(feat, ranges, n_gx, n_gy, W, H,
-                                    with_ntouch, nt_weight)
     torch.cuda.synchronize()
-    assert (wrapper.launches, tk16.composite16_fwd_walk.launches) == (
-        before[0] + 1, before[1] + 1)
-    for a, b, c in zip(got, ref, old):
+    assert wrapper.launches == before + 1
+    for a, b in zip(got, ref):
         assert torch.equal(a, b)
-        assert torch.equal(c, b)
     if with_ntouch:
         assert float(got.n_touched_pairs.sum()) > 0
 

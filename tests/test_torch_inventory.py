@@ -12,9 +12,10 @@ Read as text (``ast``; this file imports neither jax nor torch):
   no ``NOT_PORTED`` name is defined in the port module it maps to;
 - every ``pl.pallas_call(`` site of the JAX package and ``scripts/`` is
   a key of the port's ``ops/launches.py`` ``PALLAS_SITES``, and no key is
-  stale; each names CUDA sources that exist and ``COUNTERS`` names,
-  which cover ``COUNTERS`` exactly. Every CUDA source in ``csrc/`` is a
-  site's or one of ``OTHER_SOURCES``, the kernels that replace no site.
+  stale; each names CUDA sources that exist and ``COUNTERS`` names.
+  Every CUDA source in ``csrc/`` is a site's or one of
+  ``OTHER_SOURCES``, the kernels that replace no site, and the sites'
+  counters and ``OTHER_SOURCES``' together cover ``COUNTERS`` exactly.
 """
 
 import ast
@@ -263,16 +264,15 @@ def test_registry_sources_exist():
     sites, _ = registry()
     used = set()
     for site, v in sites.items():
-        rows = {**v["counters"], **v.get("entry", {}), **v["yardsticks"]}
+        rows = {**v["counters"], **v.get("entry", {})}
         assert rows, site
         for name, (src, _note) in rows.items():
             assert src.startswith("csrc/") and (PORT_PKG / src).is_file(), (
                 site, name, src)
             used.add(src)
-        for entry in list(v.get("entry", {})) + [
-                k for k in v["yardsticks"] if ":" in k]:
+        for entry in v.get("entry", {}):
             path, fn = entry.split(":")
-            assert fn.split("(")[0] in names(PORT_PKG / path), entry
+            assert fn in names(PORT_PKG / path), entry
     built = {p.relative_to(PORT_PKG).as_posix()
              for p in (PORT_PKG / "csrc").glob("*.cu")}
     others = set(launches_module()[0]["OTHER_SOURCES"])
@@ -297,12 +297,18 @@ def test_every_cuda_source_is_a_built_library():
 
 
 def test_registry_counters_cover_COUNTERS():
+    """The sites' counters and OTHER_SOURCES' counters, together, are
+    COUNTERS exactly: every hand-written kernel a path launches is
+    counted, and named once."""
     sites, counters = registry()
+    others = launches_module()[0]["OTHER_SOURCES"]
     named = [n for v in sites.values() for n in v["counters"]]
+    named += [n for _work, kernels in others.values() for n in kernels]
     assert len(named) == len(set(named)), named
     assert set(named) == set(counters), (
         f"not in COUNTERS: {sorted(set(named) - set(counters))}; "
-        f"COUNTERS of no site: {sorted(set(counters) - set(named))}")
+        f"COUNTERS of no site or source: "
+        f"{sorted(set(counters) - set(named))}")
     # B1-B4 launch through COUNTERS; B5 through the port script's entry
     assert all(v["counters"] or v.get("entry") for v in sites.values())
 

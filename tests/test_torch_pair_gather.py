@@ -3,7 +3,8 @@ the CUDA kernels of ``csrc/pair_gather.cu`` implement.
 
 ``segment_reduce_pairs`` on a CPU tensor takes the plain chain (prefix
 sums over the capacity) and launches no kernel: neither wrapper's
-``launches`` nor its trace counter moves, through ``pair_gather``'s
+``launches`` moves (read directly and as ``launch.<name>`` in the trace
+snapshot), through ``pair_gather``'s
 forward and backward alike. Its result is each Gaussian's float64 sum
 over its emission segment [seg_start, min(seg_end, capacity)), skipping
 the pairs the plan dropped (``aligned_of_em == B_al``: culled, or past
@@ -75,8 +76,8 @@ def test_plain_path_is_the_segment_sum(cap, tile16, f, integer):
     assert int((plan.aligned_of_em[:pairs] == b_al).sum()) > 0
 
     before = (pg.pair_gather_fwd.launches, pg.segment_reduce_fwd.launches,
-              trace.snapshot().get("render.pair_gather_kernel", 0),
-              trace.snapshot().get("render.segment_reduce_kernel", 0))
+              trace.snapshot()["launch.pair_gather_fwd"],
+              trace.snapshot()["launch.segment_reduce_fwd"])
     g = torch.Generator().manual_seed(cap + f)
     if integer:
         values = torch.randint(0, 1025, (b_al, f), generator=g).float()
@@ -89,8 +90,8 @@ def test_plain_path_is_the_segment_sum(cap, tile16, f, integer):
     assert torch.equal(feat, pg.pair_gather_plain(table, plan))
     feat.backward(values)
     after = (pg.pair_gather_fwd.launches, pg.segment_reduce_fwd.launches,
-             trace.snapshot().get("render.pair_gather_kernel", 0),
-             trace.snapshot().get("render.segment_reduce_kernel", 0))
+             trace.snapshot()["launch.pair_gather_fwd"],
+             trace.snapshot()["launch.segment_reduce_fwd"])
     assert after == before
 
     ref = _direct_sum(values, plan)

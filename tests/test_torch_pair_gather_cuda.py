@@ -33,6 +33,7 @@ import torch
 from gs_slam_analytica_jacobian_tpu_torch.models import gaussian_map as gmap
 from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera
 from gs_slam_analytica_jacobian_tpu_torch.ops import gaussian_math as gmath
+from gs_slam_analytica_jacobian_tpu_torch.ops import launches
 from gs_slam_analytica_jacobian_tpu_torch.ops import pair_gather as pg
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled
 from gs_slam_analytica_jacobian_tpu_torch.ops.lie import se3_exp
@@ -95,14 +96,14 @@ def _segment_sum64(values, plan):
 def test_forward_equals_plain(cuda, cap, tile16):
     plan, table = _plan(cuda, cap, tile16)
     before = (pg.pair_gather_fwd.launches,
-              trace.snapshot().get("render.pair_gather_kernel", 0))
+              launches.counts()["pair_gather_fwd"])
     got = pg.pair_gather(table, plan)
     ref = pg.pair_gather_plain(table, plan)
     # a table at other strides (columns apart) takes the one-float path
     strided = pg.pair_gather_fwd(table.T.contiguous().T, plan)
     torch.cuda.synchronize()
     assert pg.pair_gather_fwd.launches == before[0] + 2
-    assert trace.snapshot()["render.pair_gather_kernel"] == before[1] + 2
+    assert trace.snapshot()["launch.pair_gather_fwd"] == before[1] + 2
     assert got.is_contiguous() and got.shape == ref.shape
     assert torch.equal(got, ref)
     assert torch.equal(strided, ref)
@@ -118,14 +119,14 @@ def test_backward_against_float64_and_plain(cuda, cap, tile16):
     g = torch.Generator(device=cuda).manual_seed(cap + tile16)
     dfeat = torch.randn(b_al, 16, generator=g, device=cuda)
     before = (pg.segment_reduce_fwd.launches,
-              trace.snapshot().get("render.segment_reduce_kernel", 0))
+              launches.counts()["segment_reduce_fwd"])
     got = pg.segment_reduce_pairs(dfeat, plan)
     again = pg.segment_reduce_pairs(dfeat, plan)
     plain = pg.segment_reduce_plain(dfeat, plan)
     ref = _segment_sum64(dfeat, plan)
     torch.cuda.synchronize()
     assert pg.segment_reduce_fwd.launches == before[0] + 2
-    assert trace.snapshot()["render.segment_reduce_kernel"] == before[1] + 2
+    assert trace.snapshot()["launch.segment_reduce_fwd"] == before[1] + 2
     assert got.shape == (plan.seg_start.shape[0], 16)
     assert torch.equal(got, again)
     assert float(ref.norm()) > 0

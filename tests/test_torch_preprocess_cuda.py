@@ -34,6 +34,7 @@ import torch
 
 from gs_slam_analytica_jacobian_tpu_torch.models import gaussian_map as gmap
 from gs_slam_analytica_jacobian_tpu_torch.models.camera import Camera, PoseState
+from gs_slam_analytica_jacobian_tpu_torch.ops import launches
 from gs_slam_analytica_jacobian_tpu_torch.ops import losses
 from gs_slam_analytica_jacobian_tpu_torch.ops import preprocess_fused as pf
 from gs_slam_analytica_jacobian_tpu_torch.ops import renderer_tiled
@@ -91,7 +92,7 @@ def test_forward_kernel_matches_plain(cuda, sh_degree, k):
     m2o = torch.tensor(rng.normal(scale=0.5, size=(n, 2)),
                        dtype=torch.float32, device=cuda)
     before = (pf.preprocess_fwd.launches,
-              trace.snapshot().get("render.preprocess_kernel", 0))
+              launches.counts()["preprocess_fwd"])
     out = pf.preprocess_fwd(_params(gm), sh_degree, cam, tau, m2o,
                             gm.active, scale_modifier=0.9)
     got = pf._views(out)
@@ -99,7 +100,7 @@ def test_forward_kernel_matches_plain(cuda, sh_degree, k):
                                      gm.active, scale_modifier=0.9)
     torch.cuda.synchronize()
     assert pf.preprocess_fwd.launches == before[0] + 1
-    assert trace.snapshot()["render.preprocess_kernel"] == before[1] + 1
+    assert trace.snapshot()["launch.preprocess_fwd"] == before[1] + 1
     assert int(ref.valid.sum()) > 50_000
     flips = ((got.valid != ref.valid) | (got.radius != ref.radius)
              | (got.rect_min != ref.rect_min).any(-1)
@@ -199,12 +200,12 @@ def test_render_gradients_kernel_against_plain(cuda):
 
 def test_every_render_takes_the_kernel(cuda):
     """Renders with and without grad and plan builds each launch the
-    forward kernel once (the trace counter counts it); a backward
-    launches the backward once."""
+    forward kernel once (``launch.preprocess_fwd`` in the trace snapshot
+    counts it); a backward launches the backward once."""
     gm = _room(cuda)
     cam = _camera(cuda, 0)
     bg = torch.zeros(3, device=cuda)
-    c0 = trace.snapshot().get("render.preprocess_kernel", 0)
+    c0 = trace.snapshot()["launch.preprocess_fwd"]
     b0 = pf.preprocess_bwd.launches
     plan = render_api.make_render_plan(gm, cam, pair_capacity=PAIR_CAP,
                                        device=cuda)
@@ -215,6 +216,6 @@ def test_every_render_takes_the_kernel(cuda):
                             need_n_touched=False, device=cuda)
     out.color.sum().backward()
     torch.cuda.synchronize()
-    assert trace.snapshot()["render.preprocess_kernel"] == c0 + 3
+    assert trace.snapshot()["launch.preprocess_fwd"] == c0 + 3
     assert pf.preprocess_bwd.launches == b0 + 1
     assert xyz.grad is not None and bool(xyz.grad.abs().sum() > 0)

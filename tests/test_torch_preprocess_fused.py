@@ -166,13 +166,15 @@ def test_cpu_and_oracle_never_reach_the_kernel(monkeypatch):
     """CPU tensors take the plain version through every entry of
     render_api (renders with and without grad, plan builds), and the dense
     oracle keeps gaussian_math.preprocess: the kernel wrappers are never
-    called and count nothing."""
+    called and count nothing (``launch.preprocess_fwd`` and
+    ``launch.preprocess_bwd`` in the trace snapshot stay)."""
     def refuse(*a, **k):
         raise AssertionError("a CPU path reached the kernel wrapper")
 
     monkeypatch.setattr(pf, "preprocess_fwd", refuse)
     monkeypatch.setattr(pf, "preprocess_bwd", refuse)
-    before = trace.snapshot().get("render.preprocess_kernel", 0)
+    kernels = ("launch.preprocess_fwd", "launch.preprocess_bwd")
+    before = [trace.snapshot()[k] for k in kernels]
     gm = _map()
     cam = Camera.create(np.eye(3), np.array([0.05, -0.02, 0.1]), 40.0, 40.0,
                         31.5, 23.5, 64, 48, device="cpu")
@@ -194,7 +196,7 @@ def test_cpu_and_oracle_never_reach_the_kernel(monkeypatch):
     with pytest.raises(AssertionError, match="CPU path"):
         render_api.render(gm, cam, use_oracle=True, device="cpu")
     assert calls == [1]
-    assert trace.snapshot().get("render.preprocess_kernel", 0) == before
+    assert [trace.snapshot()[k] for k in kernels] == before
 
 
 def test_cpu_render_is_the_plain_path():
